@@ -1,0 +1,78 @@
+"""Shared inputs for the port's parity tests (tests/test_torch_*.py): a
+tiny JAX DeiT (depth 2, embed 32, 2 heads, image 32, patch 16, 10 classes),
+its params and masks as numpy trees, and seeded images. Every input is made
+with numpy from a seed and handed to both packages."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from turboprune_tpu.models.vit import VisionTransformer as JaxViT
+from turboprune_tpu.ops import masking as jax_masking
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one intra-op thread for the module: at these sizes more
+    threads cost more than they give, and under several test workers they
+    contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+TINY = dict(num_classes=10, patch_size=16, embed_dim=32, depth=2, num_heads=2)
+IMAGE = 32
+
+
+def jax_deit(attention_impl="flash", distilled=False, dtype=jnp.float32):
+    return JaxViT(
+        **TINY, distilled=distilled, dtype=dtype, attention_impl=attention_impl
+    )
+
+
+def seeded_params(model, image=IMAGE, seed=0):
+    """numpy params for a flax ``model``, seeded normals at the shapes of
+    its param tree. ``jax.eval_shape`` gives the tree without compiling an
+    init (a 12-block init compiles for many seconds on the CPU). Call it
+    with the dense attention: the flash param tree is the same."""
+    shapes = jax.eval_shape(
+        lambda: model.init(
+            jax.random.PRNGKey(0), jnp.zeros((1, image, image, 3)), train=False
+        )
+    )["params"]
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        name = jax.tree_util.keystr(path)
+        x = rng.normal(size=s.shape).astype(np.float32)
+        if "scale" in name:  # LayerNorm scale around 1
+            return (1.0 + 0.1 * x).astype(np.float32)
+        fan_in = int(np.prod(s.shape[:-1])) if "kernel" in name else 50
+        return (x / np.sqrt(max(fan_in, 1))).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def jax_params(distilled=False, seed=0):
+    """numpy params of the tiny DeiT."""
+    return seeded_params(jax_deit("dense", distilled), seed=seed)
+
+
+def jax_masks(params, seed=0, keep=0.7):
+    """Random masks (bool at every kernel, None elsewhere) as numpy."""
+    rng = np.random.default_rng(seed)
+    ones = jax_masking.make_masks(params)
+    return jax.tree.map(
+        lambda m: None if m is None else rng.random(m.shape) < keep,
+        ones,
+        is_leaf=lambda x: x is None,
+    )
+
+
+def images(n=3, seed=0):
+    return np.random.default_rng(seed).normal(size=(n, IMAGE, IMAGE, 3)).astype(
+        np.float32
+    )
