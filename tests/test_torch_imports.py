@@ -1,6 +1,6 @@
 """The port stands alone: no module of turboprune_tpu_torch, nor
-chip_smoke.py, nor run_server_torch.py imports JAX, flax, optax, orbax or
-the JAX package (not even its jax-free modules). Checked on the AST, so a
+chip_smoke.py, run_server_torch.py or run_experiment_torch.py imports JAX,
+flax, optax, orbax or the JAX package (not even its jax-free modules). Checked on the AST, so a
 lazy import inside a function counts too."""
 
 import ast
@@ -13,6 +13,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "turboprune_tpu")
 FILES = sorted((REPO / "turboprune_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py",
     REPO / "run_server_torch.py",
+    REPO / "run_experiment_torch.py",
 ]
 
 

@@ -35,22 +35,23 @@
 // l and the output accumulator live in fp32 registers; lane pair (2r, 2r+1)
 // owns query row r of its warp. TMA/wgmma pipelining is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int D = 64;         // head dim (every registered DeiT)
+using flash::D;
+using flash::from_f32;
+using flash::NEG_BIG;
+using flash::round_up;
+
 constexpr int KT = 128;       // keys per tile (block_k)
 constexpr int QT = 64;        // query rows per block
 constexpr int WARPS = QT / 16;
 constexpr int THREADS = WARPS * 32;
 constexpr int SLD = KT + 4;   // fp32 score row stride (also o staging)
 constexpr int OLD = D + 4;    // fp32 o staging row stride, aliases the scores
-constexpr float NEG_BIG = -1e30f;
 
 template <typename T>
 struct Traits {  // 16-bit types: rows padded by 16 bytes, wmma-aligned
@@ -62,17 +63,6 @@ struct Traits<float> {  // fp32: odd strides, conflict-free scalar reads
   static constexpr int LD = D + 1;
   static constexpr int PLD = KT + 1;
 };
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
-
-constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // Byte offsets of the shared-memory regions; each starts 128-byte aligned.
 template <typename T>
@@ -86,26 +76,12 @@ struct Smem {
   static constexpr int BYTES = round_up(P + WARPS * 16 * Traits<T>::PLD * (int)sizeof(T), 128);
 };
 
-// Copy `rows` x D elements from global (row stride D) into shared memory
-// (row stride LD), 16 bytes per thread per step. fp32 q is pre-scaled here.
+// Copy `rows` x D elements into shared memory at this kernel's row stride;
+// fp32 q is pre-scaled here.
 template <typename T>
 __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int rows,
                                           float mul) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int LD = Traits<T>::LD;
-  const int chunks = rows * (D / VEC);
-  for (int c = threadIdx.x; c < chunks; c += THREADS) {
-    const int r = c / (D / VEC);
-    const int col = (c % (D / VEC)) * VEC;
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)r * D + col);
-    if constexpr (sizeof(T) == 2) {
-      *reinterpret_cast<uint4*>(dst + r * LD + col) = raw;
-    } else {
-      const float* e = reinterpret_cast<const float*>(&raw);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) dst[r * LD + col + i] = e[i] * mul;
-    }
-  }
+  flash::load_rows<T, Traits<T>::LD, THREADS>(dst, src, rows, mul);
 }
 
 // Scores of this warp's 16 query rows against the 128 keys of the tile,

@@ -150,7 +150,7 @@ class EncoderBlock(nn.Module):
         attention_impl: str = "dense",
     ):
         # No attention dropout: the JAX model never sets it (the
-        # reference's DeiT configs use attn_drop=0) and the port serves.
+        # reference's DeiT configs use attn_drop=0).
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = SelfAttention(dim, num_heads, dtype, attention_impl)
@@ -197,6 +197,7 @@ class VisionTransformer(nn.Module):
             raise ValueError(f"image_size {image_size} % patch_size {patch_size} != 0")
         self.num_classes = num_classes
         self.embed_dim = embed_dim
+        self.dropout_rate = dropout_rate
         self.distilled = distilled
         self.dtype = dtype
         self.attention_impl = attention_impl
@@ -250,6 +251,13 @@ class VisionTransformer(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.dropout_rate > 0:
+            # nn.Dropout would draw from torch's global generator; the JAX
+            # model draws from the step's explicit key. No conf/ sets a rate.
+            raise NotImplementedError(
+                f"dropout_rate={self.dropout_rate} in training needs an explicit "
+                "generator per step, not yet ported (ROADMAP.md queue A, item 3)"
+            )
         n = x.shape[0]
         x = self.patch_embed(x)
         tokens = [self.cls_token.to(self.dtype).expand(n, -1, -1)]

@@ -1,9 +1,21 @@
 from . import masking
-from .flash import flash_attention, flash_attention_plain, flash_fwd_cuda
+from .flash import (
+    FlashAttention,
+    flash_attention,
+    flash_attention_plain,
+    flash_backward_plain,
+    flash_bwd_dkv_cuda,
+    flash_bwd_dq_cuda,
+    flash_fwd_cuda,
+)
 
 __all__ = [
     "masking",
+    "FlashAttention",
     "flash_attention",
     "flash_attention_plain",
+    "flash_backward_plain",
+    "flash_bwd_dkv_cuda",
+    "flash_bwd_dq_cuda",
     "flash_fwd_cuda",
 ]

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``build/`` at the root
-of the checkout, keyed by a hash of the source and the flags, then loaded
-with ``ctypes``. The first use in a fresh checkout builds it (a few
+of the checkout, keyed by a hash of the source, of every shared header
+``csrc/*.cuh`` and of the flags, then loaded with ``ctypes``: an edit to a
+header the kernels include rebuilds them instead of loading a stale
+library. The first use in a fresh checkout builds it (a few
 seconds); later uses load the cached library. Nothing here runs at import
 time: the CPU test suite imports this module on machines without ``nvcc``.
 """
@@ -47,11 +49,15 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives: keyed by its content."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+def library_path(name: str, csrc_dir: Path = CSRC_DIR) -> Path:
+    """Where the build of ``csrc/<name>.cu`` lives: keyed by its content,
+    the content of every ``*.cuh`` beside it (names included) and the
+    flags."""
+    h = hashlib.sha256((csrc_dir / f"{name}.cu").read_bytes())
+    for header in sorted(csrc_dir.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -1,13 +1,43 @@
-"""Cyclic epoch schedules (host-side math).
+"""Density ladders and cyclic epoch schedules (host-side math).
 
-Port of ``generate_cyclical_schedule`` from
-``turboprune_tpu/pruning/densities.py``; the config validation needs it to
-check ``rewind_epoch`` against level 0's first-cycle budget. The density
-ladders and per-layer allocations join it with the training slice
-(ROADMAP.md, queue A).
+Port of ``generate_densities`` and ``generate_cyclical_schedule`` from
+``turboprune_tpu/pruning/densities.py`` (the config validation needs the
+second to check ``rewind_epoch`` against level 0's first-cycle budget). The
+per-layer ERK and balanced allocations come with the other criteria
+(ROADMAP.md queue A, item 9).
 """
 
 from __future__ import annotations
+
+# "nm" is magnitude IMP + N:M projection: same geometric ladder as "mag".
+ITERATIVE_METHODS = ("mag", "random_erk", "random_balanced", "nm")
+PAI_METHODS = ("er_erk", "er_balanced", "synflow", "snip")
+
+
+def generate_densities(
+    prune_method: str,
+    target_sparsity: float,
+    prune_rate: float,
+    current_sparsity: float = 0.0,
+) -> list[float]:
+    """Geometric density ladder d_{i+1} = d_i * (1 - prune_rate) down to the
+    target for iterative methods; single step for PaI; [1.0] for dense."""
+    if prune_method in ITERATIVE_METHODS:
+        densities = []
+        current_density = 1.0 - current_sparsity
+        target_density = 1.0 - target_sparsity
+        # Epsilon guards float dust: 0.8 * 0.8 = 0.6400000000000001 must not
+        # spawn a spurious extra level past an exact target of 0.64.
+        while current_density > target_density * (1.0 + 1e-9):
+            densities.append(current_density)
+            current_density *= 1.0 - prune_rate
+        densities.append(current_density)
+        return densities
+    if prune_method in PAI_METHODS:
+        return [1.0 - target_sparsity]
+    if prune_method == "just dont":
+        return [1.0]
+    raise ValueError(f"Unknown pruning method: {prune_method}")
 
 
 def generate_cyclical_schedule(

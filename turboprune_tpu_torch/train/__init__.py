@@ -1,0 +1,26 @@
+"""Training layer: state, optimizers, LR schedules, train/eval steps."""
+
+from .optim import create_optimizer, set_lr
+from .schedules import create_schedule
+from .state import TrainState, create_train_state, reset_optimizer
+from .steps import (
+    add_sums,
+    cross_entropy_sum,
+    eval_step,
+    make_train_step,
+    masked_forward,
+)
+
+__all__ = [
+    "TrainState",
+    "create_train_state",
+    "reset_optimizer",
+    "create_optimizer",
+    "set_lr",
+    "create_schedule",
+    "make_train_step",
+    "eval_step",
+    "masked_forward",
+    "cross_entropy_sum",
+    "add_sums",
+]
