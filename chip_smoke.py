@@ -8,13 +8,16 @@ result line):
 
 1. build    compile every hand-written kernel (csrc/flash_fwd.cu: K1,
             csrc/flash_bwd.cu: K2 and K3) from the sources in this checkout,
-            one nvcc per source, started together.
+            one nvcc per source, started together, and print ptxas's
+            registers and spills per kernel.
 2. kernels  hold each kernel against its plain PyTorch version at the
             shapes its main path gives it (K1: the served and the training
             forward; K2/K3: the training backward, fed K1's o and lse) and
             at a small ragged shape, and time
-            kernel, plain version, the nearest PyTorch library call and the
-            card's bound.
+            kernel, plain version, the nearest PyTorch library calls
+            (scaled_dot_product_attention with a boolean mask, and its
+            flash backend on the valid tokens alone) and the card's bound;
+            K1 at the served and at the training shape.
 3. slice    write a DeiT-Small/16 @ 224 experiment dir (seeded init; level
             1 magnitude-pruned to density 0.2), start the port's HTTP server
             on it, answer concurrent /predict requests, read /healthz and
@@ -63,6 +66,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 # Served shape of the flash kernel at the largest bucket: 128 images x 6
 # heads, 197 tokens padded to 256, head_dim 64.
 SERVED_BH, SERVED_SEQ, SERVED_VALID, HEAD_DIM = 128 * 6, 256, 197, 64
+HEADS = 6
 # Tolerances of kernel vs plain version. fp32: both accumulate in fp32, in
 # other orders (tests/test_flash.py's 1e-5; measured 2.4e-7 on an H100).
 # bf16: o is rounded to bf16 after fp32 sums taken in other orders, so the
@@ -92,13 +96,14 @@ DEPTH = 12
 # padded to 256, head_dim 64.
 TRAIN_BH = 256 * 6
 # Tolerances of K2/K3 vs their plain versions. Both sides get the same
-# inputs, lse and drow and keep p and ds in fp32; they differ only in the
-# order of fp32 sums (and, for 16-bit inputs, in the tensor cores' fp32
-# accumulation of exact products for s and dp), ~1e-7 on gradients of
-# magnitude ~0.1 at these inputs. fp32: 1e-5 absolute (K1's limit). bf16:
-# each gradient is rounded once to bf16, so the two may differ by a rounding
-# flip: 2 bf16 ulps of max(|g|, 1e-3), the floor keeping the limit above
-# the fp32 noise where |g| is tiny.
+# inputs, lse and drow and keep p and ds in fp32; they differ in the order
+# of fp32 sums and, for 16-bit inputs, in the kernels' split of p and ds
+# into 16-bit hi + lo terms for the tensor cores (each kept to 2^-16 of its
+# value in bf16; tests/test_torch_flash_split.py holds the emulated split
+# within 2^-15 of each gradient's norm), ~1e-6 relative at most. fp32:
+# 1e-5 absolute (K1's limit). bf16: each gradient is rounded once to bf16,
+# so the two may differ by a rounding flip: 2 bf16 ulps of max(|g|, 1e-3),
+# the floor keeping the limit above the fp32 noise where |g| is tiny.
 BWD_FP32_TOL = 1e-5
 BWD_BF16_MIN_MAG = 1e-3
 
@@ -215,6 +220,10 @@ def phase_build() -> None:
     for name in SOURCES:
         build.load(name)
         log(f"build {name}: -> {build.library_path(name).name}")
+        for k in build.ptxas_report(name):
+            stores, loads = k["spill"] or (None, None)
+            log(f"ptxas {name} {k['kernel']}: {k['registers']} registers, "
+                f"spill stores {stores} B, spill loads {loads} B")
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, {len(SOURCES)} "
         "sources in parallel)")
 
@@ -289,6 +298,49 @@ def flash_bound_ms(bh, seq, n_valid, dtype_name) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _sdpa_flash_ms(q, k, v, n_valid, scale, do=None) -> dict:
+    """A time yardstick only: scaled_dot_product_attention restricted to its
+    flash backend, on the valid tokens alone ([b, heads, n_valid, D], no
+    mask; padded rows are not computed, so its output is not the kernels'
+    function). Device time of the forward ("fwd") and, given the upstream
+    gradient ``do``, of the backward from a retained graph ("bwd"); None
+    where the backend refuses these inputs, with the reason in "why"."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def valid_rows(t):
+        return t.reshape(-1, HEADS, t.shape[1], HEAD_DIM)[:, :, :n_valid].contiguous()
+
+    ql, kl, vl = (valid_rows(t).detach() for t in (q, k, v))
+    out = {"fwd": None, "bwd": None, "why": ""}
+    try:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION), torch.no_grad():
+            out["fwd"] = _stream_ms(
+                lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale), reps=50)
+        if do is not None:
+            ql, kl, vl = (t.requires_grad_() for t in (ql, kl, vl))
+            dol = valid_rows(do)
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION), torch.enable_grad():
+                o = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+                out["bwd"] = _stream_ms(
+                    lambda: torch.autograd.grad(o, (ql, kl, vl), dol, retain_graph=True),
+                    reps=20)
+    except RuntimeError as e:  # no flash kernel for these inputs on this build
+        out["why"] = str(e).splitlines()[0][:200]
+    return out
+
+
+def _flash_yardstick(times: dict, which: str) -> str:
+    """The log text of one _sdpa_flash_ms time ("fwd" or "bwd")."""
+    label = ("forward" if which == "fwd" else "backward (dq, dk, dv)")
+    if times[which] is None:
+        return (f"SDPA flash backend {label} on the valid tokens not measured "
+                f"({times['why'] or 'not asked'})")
+    return (f"SDPA flash backend {label} on the valid tokens, no mask, "
+            f"{times[which]:.4f} ms")
+
+
 def _kernel_tol(dt: str, ref):
     """The limit on |o - plain|: FP32_TOL in fp32; in bf16, per element,
     BF16_ULPS ulps of max(|o|, BF16_MIN_MAG)."""
@@ -360,14 +412,32 @@ def phase_kernels() -> dict:
         call_ms = _call_ms(kernel, reps=50)
         prof_ms = _device_busy_ms(kernel, reps=20)[1]["flash_fwd_kernel"]
         lib_err = (library().float() - kernel()[0].float()).abs().max().item()
+        sdpa_flash = _sdpa_flash_ms(q, k, v, SERVED_VALID, scale)
+
+        # K1 at the training shape, where most of its launches are.
+        tq, tk, tv, tvalid = _flash_inputs(TRAIN_BH, SERVED_SEQ, SERVED_VALID, torch.bfloat16, 8)
+        tmask = (tvalid[0] > 0)[None, None, :]
+        train_ms = _stream_ms(lambda: flash_fwd_cuda(tq, tk, tv, tvalid, scale), reps=20)
+        train_lib_ms = _stream_ms(
+            lambda: F.scaled_dot_product_attention(tq, tk, tv, attn_mask=tmask, scale=scale),
+            reps=20)
+        train_flash = _sdpa_flash_ms(tq, tk, tv, SERVED_VALID, scale)
+        del tq, tk, tv
     bound_ms, bound_by = flash_bound_ms(SERVED_BH, SERVED_SEQ, SERVED_VALID, "bfloat16")
     log(f"time flash_fwd bf16 [{SERVED_BH},{SERVED_SEQ},{HEAD_DIM}] valid={SERVED_VALID}: "
         f"kernel {ms:.4f} ms per launch (50 back to back, median of 5 rounds; "
         f"torch.profiler kernel time {prof_ms:.4f} ms; one call from an idle "
         f"stream, host work included, {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {library_ms:.4f} ms (|sdpa-kernel| {lib_err:.2e}), "
+        f"{_flash_yardstick(sdpa_flash, 'fwd')}, "
         f"bound {bound_ms:.4f} ms by {bound_by} "
         f"({bound_ms / ms * 100:.1f}% of bound)")
+    t_bound, t_by = flash_bound_ms(TRAIN_BH, SERVED_SEQ, SERVED_VALID, "bfloat16")
+    log(f"time flash_fwd bf16 [{TRAIN_BH},{SERVED_SEQ},{HEAD_DIM}] valid={SERVED_VALID} "
+        f"(the training forward): kernel {train_ms:.4f} ms per launch (20 back to back, "
+        f"median of 5 rounds), scaled_dot_product_attention {train_lib_ms:.4f} ms, "
+        f"{_flash_yardstick(train_flash, 'fwd')}, bound {t_bound:.4f} ms by {t_by} "
+        f"({t_bound / train_ms * 100:.1f}% of bound)")
     return {
         "max_abs_err": worst["bfloat16"],
         "ms": ms,
@@ -375,6 +445,7 @@ def phase_kernels() -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+        "library_flash_ms": sdpa_flash["fwd"],
     }
 
 
@@ -517,22 +588,26 @@ def phase_backward_kernels() -> dict:
     dq_k = flash.flash_bwd_dq_cuda(q, k, v, valid, do, lse, drow, scale)
     lib_err = (lib_grads[0].float() - dq_k.float()).abs().max().item()
     del out, lib_grads
+    sdpa_flash = _sdpa_flash_ms(q, k, v, SERVED_VALID, scale, do=do)
 
     rows = {}
     for kern, meta in (("dq", K2), ("dkv", K3)):
         ms, plain_ms, prof = times[kern]
+        # The kernels run p and ds split on the tensor cores: their bound is
+        # the split one; the fp32-core bound of PR 2's design is logged beside.
         bound_ms, bound_by, note = bwd_bound_ms(
-            kern, TRAIN_BH, SERVED_SEQ, SERVED_VALID, "bfloat16")
-        tc_ms, tc_by, tc_note = bwd_bound_ms(
             kern, TRAIN_BH, SERVED_SEQ, SERVED_VALID, "bfloat16", split=True)
+        cc_ms, cc_by, cc_note = bwd_bound_ms(
+            kern, TRAIN_BH, SERVED_SEQ, SERVED_VALID, "bfloat16")
         log(f"time flash_bwd_{kern} bf16 [{TRAIN_BH},{SERVED_SEQ},{HEAD_DIM}] "
             f"valid={SERVED_VALID}: kernel {ms:.4f} ms per launch (20 back to back, "
             f"median of 5 rounds; torch.profiler kernel time {prof:.4f} ms), plain "
             f"{plain_ms:.4f} ms, scaled_dot_product_attention backward (dq, dk, dv) "
-            f"{library_ms:.4f} ms (|sdpa dq - kernel dq| {lib_err:.2e}), bound "
+            f"{library_ms:.4f} ms (|sdpa dq - kernel dq| {lib_err:.2e}), "
+            f"{_flash_yardstick(sdpa_flash, 'bwd')}; tensor-core bound "
             f"{bound_ms:.4f} ms by {bound_by} ({note}; {bound_ms / ms * 100:.1f}% of "
-            f"bound); tensor-core bound {tc_ms:.4f} ms by {tc_by} ({tc_note}; "
-            f"{tc_ms / ms * 100:.1f}% of it)")
+            f"bound); fp32-core bound {cc_ms:.4f} ms by {cc_by} ({cc_note}; "
+            f"{cc_ms / ms * 100:.1f}% of it)")
         rows[kern] = {
             "max_abs_err": max(worst[kern].values()),
             "ms": ms,
@@ -540,7 +615,15 @@ def phase_backward_kernels() -> dict:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": library_ms,
+            "library_flash_ms": sdpa_flash["bwd"],
         }
+    k2k3 = times["dq"][0] + times["dkv"][0]
+    log(f"time K2+K3 bf16 [{TRAIN_BH},{SERVED_SEQ},{HEAD_DIM}]: {k2k3:.4f} ms; "
+        f"scaled_dot_product_attention backward with a boolean mask {library_ms:.4f} ms "
+        f"({library_ms / k2k3:.2f}x K2+K3); "
+        + (f"SDPA flash backend backward on the valid tokens {sdpa_flash['bwd']:.4f} ms "
+           f"({sdpa_flash['bwd'] / k2k3:.2f}x K2+K3)" if sdpa_flash["bwd"] is not None
+           else "SDPA flash backend backward not measured"))
     return rows
 
 
@@ -1018,7 +1101,10 @@ def phase_train() -> dict:
     ours_ms = sum(ours.values())
     log(f"train step (DeiT-Small/16 @ 224, batch 256, bf16, flash): {step_ms:.3f} ms "
         "(CUDA events around one step, host work included, median of 5; "
-        f"dense-attention step {dense_ms:.3f} ms, device busy {dense_busy_ms:.3f} ms); "
+        f"dense-attention step {dense_ms:.3f} ms, device busy {dense_busy_ms:.3f} ms; "
+        f"flash / dense {step_ms / dense_ms:.3f} by step time"
+        + (f", {busy_ms / dense_busy_ms:.3f} by device busy" if dense_busy_ms else "")
+        + "); "
         + (f"device busy {busy_ms:.3f} ms per step (idle "
            f"{max(0.0, 1 - busy_ms / step_ms) * 100:.1f}%); K1+K2+K3 "
            f"{ours_ms:.3f} ms = {ours_ms / busy_ms * 100:.1f}% of it ("
@@ -1049,7 +1135,8 @@ def main() -> int:
     slice_out = phase_slice()
     train_out = phase_train()
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s on {card}")
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_flash_ms")
     # Launches on the main paths: K1 in every forward, served and trained;
     # K2/K3 in every training backward.
     k1_launches = slice_out["launches"] + train_out["launches"]["flash_fwd_cuda"]

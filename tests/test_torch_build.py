@@ -11,7 +11,7 @@ from turboprune_tpu_torch.ops import build
 def test_library_path_follows_the_shared_headers(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC_DIR, csrc)
-    assert sorted(p.name for p in csrc.glob("*.cuh")) == ["flash_common.cuh"]
+    assert sorted(p.name for p in csrc.glob("*.cuh")) == ["flash_common.cuh", "flash_mma.cuh"]
     before = {name: build.library_path(name, csrc) for name in ("flash_fwd", "flash_bwd")}
     assert before == {name: build.library_path(name) for name in before}
 
@@ -29,3 +29,25 @@ def test_library_path_follows_the_shared_headers(tmp_path):
     src.write_text(src.read_text() + "\n// edited\n")
     assert build.library_path("flash_fwd", csrc) != moved["flash_fwd"]
     assert build.library_path("flash_bwd", csrc) == moved["flash_bwd"]
+
+
+PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z19flash_bwd_dq_kernelI13__nv_bfloat16EvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _Z19flash_bwd_dq_kernelI13__nv_bfloat16EvPKT_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 424 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z24flash_bwd_dq_kernel_fp32PKf' for 'sm_90a'
+ptxas info    : Function properties for _Z24flash_bwd_dq_kernel_fp32PKf
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 424 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    assert build.parse_ptxas(PTXAS) == [
+        {"kernel": "_Z19flash_bwd_dq_kernelI13__nv_bfloat16EvPKT_", "registers": 168,
+         "spill": (0, 0)},
+        {"kernel": "_Z24flash_bwd_dq_kernel_fp32PKf", "registers": 255, "spill": (12, 16)},
+    ]
+    assert build.report_path(build.library_path("flash_bwd")).name.endswith(".ptxas.txt")

@@ -9,7 +9,8 @@ bf16/fp16 3e-2 as in tests/test_flash.py (o is rounded to the 16-bit type
 after fp32 accumulations in different orders: an ulp or two apart). The
 backward's fp32 gradients sum up to 384 terms of magnitude ~1 in other
 orders: 1e-4; its 16-bit gradients are rounded once from those sums: 3e-2
-absolute and relative.
+absolute and relative, also at the edges of the 16-bit kernels' tiling;
+and two launches give bit-identical gradients (no atomics).
 """
 
 import pytest
@@ -55,7 +56,16 @@ def test_kernel_matches_plain(cuda, dtype, tol, bh, seq, n_valid):
 )
 @pytest.mark.parametrize("bh,seq,n_valid", [(96, 256, 197), (6, 384, 301)])
 def test_backward_kernels_match_plain(cuda, dtype, tol, bh, seq, n_valid):
-    g = torch.Generator(device=cuda).manual_seed(2)
+    got, ref = _backward(cuda, dtype, bh, seq, n_valid)
+    for g, want in zip(got, ref):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _backward(cuda, dtype, bh, seq, n_valid, seed=2):
+    """K2/K3 on seeded inputs, with lse and drow from the plain forward:
+    ((dq, dk, dv), flash_backward_plain's (dq, dk, dv))."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
     q, k, v, do = (
         torch.randn(bh, seq, 64, device=cuda, generator=g).to(dtype) for _ in range(4)
     )
@@ -67,9 +77,39 @@ def test_backward_kernels_match_plain(cuda, dtype, tol, bh, seq, n_valid):
         dk, dv = flash.flash_bwd_dkv_cuda(q, k, v, valid, do, lse, drow, 0.125)
         ref = flash.flash_backward_plain(q, k, v, valid, o, lse, do, 0.125)
     torch.cuda.synchronize()
-    for got, want in zip((dq, dk, dv), ref):
-        assert got.dtype == dtype
-        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    return (dq, dk, dv), ref
+
+
+# Edges of the 16-bit kernels' tiling (64-row tiles, the streamed ones
+# double-buffered): (b*h, seq, valid keys).
+TILING_EDGES = {
+    "seq128": (3, 128, 100),  # the shortest sequence: two tiles, one prefetch
+    "all-keys-valid": (5, 256, 256),
+    "one-valid-key": (6, 256, 1),
+    "padding-query-tiles": (4, 256, 100),  # query and key tiles 128..255 wholly padding
+    "bh13": (13, 384, 301),  # b*h prime, the last key tile partly valid
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("edge", TILING_EDGES)
+def test_backward_kernels_tiling_edges(cuda, dtype, edge):
+    bh, seq, n_valid = TILING_EDGES[edge]
+    got, ref = _backward(cuda, dtype, bh, seq, n_valid, seed=3)
+    for g, want in zip(got, ref):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), want.float(), atol=3e-2, rtol=3e-2)
+    # Keys past the valid ones get exactly zero dk and dv (padded query rows
+    # are not skipped: their dq is part of the function, held above).
+    assert not got[1][:, n_valid:].any() and not got[2][:, n_valid:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_backward_kernels_are_deterministic(cuda, dtype):
+    first, _ = _backward(cuda, dtype, 96, 256, 197, seed=4)
+    second, _ = _backward(cuda, dtype, 96, 256, 197, seed=4)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_kernel_refuses_what_it_does_not_run(cuda):
@@ -97,3 +137,32 @@ def test_kernel_refuses_what_it_does_not_run(cuda):
         ref = flash.flash_backward_plain(q, k, v, valid, o, lse, w, 0.125)
     for got, want in zip(grads, ref):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_backward_kernels_take_misaligned_row_vectors(cuda):
+    # lse, drow and the validity row as views 4 bytes past a 16-byte
+    # boundary: the 16-bit kernels copy them by 16-byte cp.async, so the
+    # wrappers hand them aligned copies, and the gradients do not change.
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do = (
+        torch.randn(6, 128, 64, device=cuda, generator=g).to(torch.bfloat16)
+        for _ in range(4)
+    )
+    valid = (torch.arange(128, device=cuda) < 100).float()[None]
+
+    def off16(t):
+        view = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        return view
+
+    with torch.no_grad():
+        o, lse = flash.flash_attention_plain(q, k, v, valid, 0.125)
+        drow = flash.row_correction(o, do)
+        args = (q, k, v, valid, do, lse, drow, 0.125)
+        shifted = (q, k, v, off16(valid), do, off16(lse), off16(drow), 0.125)
+        want = (flash.flash_bwd_dq_cuda(*args), *flash.flash_bwd_dkv_cuda(*args))
+        got = (flash.flash_bwd_dq_cuda(*shifted), *flash.flash_bwd_dkv_cuda(*shifted))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -6,8 +6,10 @@ of the checkout, keyed by a hash of the source, of every shared header
 ``csrc/*.cuh`` and of the flags, then loaded with ``ctypes``: an edit to a
 header the kernels include rebuilds them instead of loading a stale
 library. The first use in a fresh checkout builds it (a few
-seconds); later uses load the cached library. Nothing here runs at import
-time: the CPU test suite imports this module on machines without ``nvcc``.
+seconds); later uses load the cached library. ptxas's resource report
+(registers, spills, shared memory per kernel) is kept beside each library
+and read by ``ptxas_report``. Nothing here runs at import time: the CPU
+test suite imports this module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -25,7 +28,7 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -76,11 +79,41 @@ def build(name: str) -> Path:
             raise KernelBuildError(
                 f"nvcc failed ({proc.returncode}) on {name}.cu:\n{proc.stderr}"
             )
+        report_path(out).write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def report_path(library: Path) -> Path:
+    return library.with_suffix(".ptxas.txt")
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """``parse_ptxas`` of the report kept when ``csrc/<name>.cu`` was
+    built."""
+    return parse_ptxas(report_path(library_path(name)).read_text())
+
+
+def parse_ptxas(text: str) -> list[dict]:
+    """Per kernel in ptxas's ``-v`` report: its mangled name, the registers
+    a thread uses and the bytes it spills as (stores, loads)."""
+    kernels: list[dict] = []
+    for line in text.splitlines():
+        if m := _ENTRY.search(line):
+            kernels.append({"kernel": m.group(1), "registers": None, "spill": None})
+        elif kernels and (m := _SPILLS.search(line)):
+            kernels[-1]["spill"] = (int(m.group(1)), int(m.group(2)))
+        elif kernels and (m := _REGS.search(line)):
+            kernels[-1]["registers"] = int(m.group(1))
+    return kernels
 
 
 def load(name: str) -> ctypes.CDLL:

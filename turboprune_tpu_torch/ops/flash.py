@@ -258,11 +258,20 @@ def _row_stat(name: str, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
             f"{name}: row statistics must be float32 [{bh}, {s_len}, 1], got "
             f"{t.dtype} {tuple(t.shape)}"
         )
-    return t.to(like.device).contiguous()
+    return _aligned16(t.to(like.device).contiguous())
 
 
 def _valid_row(kv_valid: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    return kv_valid.reshape(-1).to(device=like.device, dtype=torch.float32).contiguous()
+    return _aligned16(
+        kv_valid.reshape(-1).to(device=like.device, dtype=torch.float32).contiguous()
+    )
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when a view leaves it off 16 bytes: the
+    16-bit backward kernels copy lse, drow and the validity row into shared
+    memory 16 bytes at a time."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _stream(t: torch.Tensor) -> int:
