@@ -13,7 +13,9 @@ result line):
 2. kernels  hold each kernel against its plain PyTorch version at the
             shapes its main path gives it (K1: the served and the training
             forward; K2/K3: the training backward, fed K1's o and lse) and
-            at a small ragged shape, and time
+            at a small ragged shape (K1 also on a validity row with holes
+            and a dead key block, and on one with no valid key), print K1's
+            blocks per SM, and time
             kernel, plain version, the nearest PyTorch library calls
             (scaled_dot_product_attention with a boolean mask, and its
             flash backend on the valid tokens alone) and the card's bound;
@@ -272,6 +274,25 @@ def _stream_ms(fn, reps: int, rounds: int = 5, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _validity_row(seq, n_valid):
+    """The key-validity row [1, seq]: the first ``n_valid`` keys, or a named
+    row that reaches K1's skipping of dead keys: "holes" (every fifth key
+    invalid, a dead 16-key group inside the first 128-key block, a second
+    block with no valid key, the last block valid up to key 349) or "none"
+    (no valid key: o = 0 and the TPU's lse = -1e30)."""
+    import torch
+
+    keys = torch.arange(seq, device="cuda")
+    if n_valid == "holes":
+        keep = ((keys % 5 != 2) & ~((keys >= 32) & (keys < 48))
+                & ~((keys >= 128) & (keys < 256)) & (keys < 350))
+    elif n_valid == "none":
+        keep = torch.zeros(seq, dtype=torch.bool, device="cuda")
+    else:
+        keep = keys < n_valid
+    return keep.float()[None]
+
+
 def _flash_inputs(bh, seq, n_valid, dtype, seed):
     import torch
 
@@ -280,8 +301,7 @@ def _flash_inputs(bh, seq, n_valid, dtype, seed):
         torch.randn(bh, seq, HEAD_DIM, device="cuda", generator=g).to(dtype)
         for _ in range(3)
     )
-    valid = (torch.arange(seq, device="cuda") < n_valid).float()[None]
-    return q, k, v, valid
+    return q, k, v, _validity_row(seq, n_valid)
 
 
 def flash_bound_ms(bh, seq, n_valid, dtype_name) -> tuple[float, str]:
@@ -358,8 +378,12 @@ def phase_kernels() -> dict:
     import torch
     import torch.nn.functional as F
 
+    from turboprune_tpu_torch.ops import flash
     from turboprune_tpu_torch.ops.flash import flash_attention_plain, flash_fwd_cuda
 
+    for dt in ("bfloat16", "float16", "float32"):
+        n = flash.flash_fwd_blocks_per_sm(getattr(torch, dt), torch.device("cuda"))
+        log(f"occupancy flash_fwd {dt}: {n} blocks of 4 warps per SM ({4 * n} warps)")
     main_shapes = ((SERVED_BH, SERVED_SEQ), (TRAIN_BH, SERVED_SEQ))
     cases = [
         ("float32", SERVED_BH, SERVED_SEQ, SERVED_VALID),
@@ -368,6 +392,9 @@ def phase_kernels() -> dict:
         ("bfloat16", TRAIN_BH, SERVED_SEQ, SERVED_VALID),
         ("float32", 6, 384, 301),  # small, ragged: the last key tile is partial
         ("bfloat16", 6, 384, 301),
+        ("float32", 96, 384, "holes"),  # dead groups and a dead key block
+        ("bfloat16", 96, 384, "holes"),
+        ("bfloat16", 96, 256, "none"),  # no valid key at all
     ]
     worst = {}
     with torch.no_grad():
@@ -389,6 +416,8 @@ def phase_kernels() -> dict:
                 + f") max|lse-plain|={err_l:.3e} (tol {LSE_TOL:g}) finite={finite}")
             if not (finite and share <= 1.0 and err_l <= LSE_TOL):
                 raise AssertionError(f"flash_fwd disagrees with its plain version ({dt})")
+            if nv == "none" and (o.any() or not bool((lse == flash.NEG_BIG).all())):
+                raise AssertionError("flash_fwd with no valid key: o must be 0, lse -1e30")
             if (bh, seq) in main_shapes:
                 worst[dt] = max(worst.get(dt, 0.0), err_o)
 

@@ -1,10 +1,14 @@
 """The kernel builds' cache key (turboprune_tpu_torch/ops/build.py): a
 build is keyed by its source, every shared header beside it and the
 flags, so an edit to a header the kernels include rebuilds them instead of
-loading a stale library. Checked on copies of csrc/ (no nvcc needed)."""
+loading a stale library. Checked on copies of csrc/ (no nvcc needed). Also:
+every ablation of ablate_flash_fwd.py still patches csrc/flash_fwd.cu."""
 
 import shutil
 
+import pytest
+
+import ablate_flash_fwd
 from turboprune_tpu_torch.ops import build
 
 
@@ -51,3 +55,14 @@ def test_ptxas_report_reads_registers_and_spills():
         {"kernel": "_Z24flash_bwd_dq_kernel_fp32PKf", "registers": 255, "spill": (12, 16)},
     ]
     assert build.report_path(build.library_path("flash_bwd")).name.endswith(".ptxas.txt")
+
+
+@pytest.mark.parametrize("variant", ablate_flash_fwd.VARIANTS)
+def test_every_ablation_patches_the_kernel_source(variant):
+    source = ablate_flash_fwd.SOURCE.read_text()
+    assert (ablate_flash_fwd.patched(variant, source) == source) == (variant == "base")
+
+
+def test_an_ablation_that_no_longer_applies_raises():
+    with pytest.raises(ValueError, match="exactly once"):
+        ablate_flash_fwd.patched("ieee_div", "")

@@ -95,6 +95,14 @@ class TestContract:
         torch_flash.flash_attention(q, k, v, torch.ones(1, 16), 0.5, 8, 8)
         assert torch_flash.flash_fwd_cuda.launches == before
 
+    def test_cuda_path_refuses_a_block_k_the_kernel_does_not_run(self):
+        # K1 rescales per 128 keys; FlashAttention checks block_k before it
+        # launches K1 on a CUDA tensor, instead of ignoring it.
+        torch_flash.check_kernel_block_k(128)
+        for block_k in (64, 256):
+            with pytest.raises(ValueError, match="per 128 keys"):
+                torch_flash.check_kernel_block_k(block_k)
+
     def test_kernel_wrapper_refuses_cpu_tensors(self):
         q, k, v = (torch.from_numpy(t) for t in make_qkv())
         with pytest.raises(ValueError, match="CUDA tensors"):

@@ -6,7 +6,12 @@ machine with
 
 Tolerances: fp32 1e-5 (both sides accumulate in fp32, in other orders);
 bf16/fp16 3e-2 as in tests/test_flash.py (o is rounded to the 16-bit type
-after fp32 accumulations in different orders: an ulp or two apart). The
+after fp32 accumulations in different orders: an ulp or two apart), lse
+1e-4. The 16-bit K1 skips dead 16-key groups and key blocks with no valid
+key: it is also held on validity rows with holes and dead blocks, at valid
+counts on the edges of its groups and blocks, with no valid key at all
+(o = 0 and the TPU's lse = -1e30, from which the backward stays finite),
+and for bit-identical results across two launches. The
 backward's fp32 gradients sum up to 384 terms of magnitude ~1 in other
 orders: 1e-4; its 16-bit gradients are rounded once from those sums: 3e-2
 absolute and relative, also at the edges of the 16-bit kernels' tiling;
@@ -48,6 +53,94 @@ def test_kernel_matches_plain(cuda, dtype, tol, bh, seq, n_valid):
     assert flash.flash_fwd_cuda.launches == before + 1
     torch.testing.assert_close(o.float(), ref_o.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+def _forward(cuda, dtype, bh, valid, seed):
+    """K1 and the plain forward on seeded inputs: (q, k, v, o, lse, ref_o,
+    ref_lse)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (
+        torch.randn(bh, valid.shape[1], 64, device=cuda, generator=g).to(dtype)
+        for _ in range(3)
+    )
+    with torch.no_grad():
+        o, lse = flash.flash_fwd_cuda(q, k, v, valid, 0.125)
+        ref_o, ref_lse = flash.flash_attention_plain(q, k, v, valid, 0.125)
+    torch.cuda.synchronize()
+    return q, k, v, o, lse, ref_o, ref_lse
+
+
+# Validity rows K1 skips work on: name -> (seq, valid keys as a bool row).
+def _rows(seq, *ranges):
+    keep = torch.zeros(seq, dtype=torch.bool)
+    for a, b in ranges:
+        keep[a:b] = True
+    return keep
+
+
+VALIDITY_ROWS = {
+    "holes": lambda: _rows(256, (0, 20), (48, 60), (61, 118), (130, 131), (150, 230)),
+    "dead-first-block": lambda: _rows(256, (128, 201)),
+    "dead-middle-block": lambda: _rows(384, (0, 100), (256, 301)),
+    "alternate": lambda: (torch.arange(256) % 2 == 1),
+}
+TOLS = {torch.float32: 1e-5, torch.bfloat16: 3e-2, torch.float16: 3e-2}
+DTYPE_IDS = {torch.float32: "fp32", torch.bfloat16: "bf16", torch.float16: "fp16"}
+
+
+@pytest.mark.parametrize("dtype", TOLS, ids=DTYPE_IDS.get)
+@pytest.mark.parametrize("rows", VALIDITY_ROWS)
+def test_kernel_matches_plain_on_validity_rows(cuda, dtype, rows):
+    valid = VALIDITY_ROWS[rows]().float()[None].to(cuda)
+    *_, o, lse, ref_o, ref_lse = _forward(cuda, dtype, 24, valid, seed=6)
+    torch.testing.assert_close(o.float(), ref_o.float(), atol=TOLS[dtype], rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", TOLS, ids=DTYPE_IDS.get)
+def test_kernel_with_no_valid_key(cuda, dtype):
+    # Every block is skipped: o = 0 and lse = -1e30, as the TPU kernel
+    # ends (m = max(-inf, -1e30)); the backward from that lse stays finite.
+    valid = torch.zeros(1, 256, device=cuda)
+    q, k, v, o, lse, ref_o, ref_lse = _forward(cuda, dtype, 12, valid, seed=7)
+    assert not o.any()
+    assert bool((lse == flash.NEG_BIG).all()) and bool((ref_lse == flash.NEG_BIG).all())
+    do = torch.randn_like(q)
+    with torch.no_grad():
+        drow = flash.row_correction(o, do)
+        grads = (flash.flash_bwd_dq_cuda(q, k, v, valid, do, lse, drow, 0.125),
+                 *flash.flash_bwd_dkv_cuda(q, k, v, valid, do, lse, drow, 0.125),
+                 *flash.flash_backward_plain(q, k, v, valid, o, lse, do, 0.125))
+    torch.cuda.synchronize()
+    for g in grads:
+        assert bool(g.float().isfinite().all()) and not g.any()
+
+
+# Valid counts (a prefix) on the edges of K1's 16-key groups and 128-key
+# blocks: (seq, valid keys).
+GROUP_EDGES = [(256, n) for n in (1, 16, 17, 127, 128, 129, 255, 256)] + [(384, 301)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("seq,n_valid", GROUP_EDGES)
+def test_kernel_group_and_block_edges(cuda, dtype, seq, n_valid):
+    valid = (torch.arange(seq, device=cuda) < n_valid).float()[None]
+    *_, o, lse, ref_o, ref_lse = _forward(cuda, dtype, 10, valid, seed=8)
+    torch.testing.assert_close(o.float(), ref_o.float(), atol=3e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_kernel_is_deterministic(cuda, dtype):
+    valid = (torch.arange(256, device=cuda) < 197).float()[None]
+    q, k, v, o, lse, *_ = _forward(cuda, dtype, 96, valid, seed=9)
+    with torch.no_grad():
+        o2, lse2 = flash.flash_fwd_cuda(q, k, v, valid, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    # The CUDA path refuses a block_k it would not honour.
+    with pytest.raises(ValueError, match="128"):
+        flash.flash_attention(q, k, v, valid, 0.125, 128, 64)
 
 
 @pytest.mark.parametrize(

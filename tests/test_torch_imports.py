@@ -1,7 +1,8 @@
 """The port stands alone: no module of turboprune_tpu_torch, nor
-chip_smoke.py, run_server_torch.py or run_experiment_torch.py imports JAX,
-flax, optax, orbax or the JAX package (not even its jax-free modules). Checked on the AST, so a
-lazy import inside a function counts too."""
+chip_smoke.py, ablate_flash_fwd.py, run_server_torch.py or
+run_experiment_torch.py imports JAX, flax, optax, orbax or the JAX package
+(not even its jax-free modules). Checked on the AST, so a lazy import
+inside a function counts too."""
 
 import ast
 from pathlib import Path
@@ -12,6 +13,7 @@ REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "turboprune_tpu")
 FILES = sorted((REPO / "turboprune_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py",
+    REPO / "ablate_flash_fwd.py",
     REPO / "run_server_torch.py",
     REPO / "run_experiment_torch.py",
 ]

@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy pieces of the 16-bit flash kernels
-// (flash_bwd.cu): cp.async, ldmatrix, mma.sync.m16n8k16 with fp32
-// accumulation, and the split of an fp32 operand into 16-bit hi + lo terms.
-// sm_80 and later instructions; the kernels build for sm_90a.
+// (flash_fwd.cu, flash_bwd.cu): cp.async, ldmatrix, mma.sync.m16n8k16 with
+// fp32 accumulation, reductions over the four lanes that share a fragment
+// row, and the split of an fp32 operand into 16-bit hi + lo terms. sm_80
+// and later instructions; the kernels build for sm_90a.
 //
 // Fragment layouts of mma.sync.m16n8k16 (PTX ISA), for lane = 4 g + t:
 //   A (16 x 16, row-major), 4 registers of two 16-bit values each:
@@ -37,22 +38,31 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // Four 8 x 8 matrices of 16-bit values from shared memory; lane l gives the
-// address of row l % 8 of matrix l / 8 and receives, in r[i], the two
-// values of matrix i at (row l / 4, cols 2 (l % 4), +1): of its transpose
-// with `trans`.
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+// address of row l % 8 of matrix l / 8 (a pointer, or a shared-space
+// address from smem_u32) and receives, in r[i], the two values of matrix i
+// at (row l / 4, cols 2 (l % 4), +1): of its transpose with `trans`.
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
+               : "r"(addr)
                : "memory");
 }
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
+               : "r"(addr)
                : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) { ldsm_x4(r, smem_u32(p)); }
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
+  ldsm_x4_trans(r, smem_u32(p));
 }
 
 // c += a b on the tensor cores, m16n8k16, fp32 accumulation (products of
@@ -75,6 +85,17 @@ __device__ __forceinline__ void mma16816<__half>(float c[4], const uint32_t a[4]
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Max and sum over the four lanes 4g..4g+3 that hold one row of a C
+// fragment (every lane gets the result).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Two fp32 values rounded to nearest into one register of two T (x low).

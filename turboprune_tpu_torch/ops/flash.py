@@ -12,7 +12,8 @@ by the online-softmax recurrence and backward by recomputation from
   signature and ``ValueError`` contract. It goes through ``FlashAttention``
   (the counterpart of the ``jax.custom_vjp``): a CUDA tensor runs K1 forward
   and K2/K3 backward (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) or
-  raises; only a CPU tensor takes the plain versions.
+  raises, also for a ``block_k`` other than K1's 128; only a CPU tensor
+  takes the plain versions.
 - ``flash_attention_plain`` (K1), ``flash_bwd_dq_plain`` (K2) and
   ``flash_bwd_dkv_plain`` (K3) run the TPU kernels' recurrences over blocks
   of ``block_q``/``block_k`` in torch ops; ``flash_backward_plain`` is the
@@ -33,6 +34,7 @@ from torch.autograd.function import once_differentiable
 NEG_BIG = -1e30
 KERNEL_HEAD_DIM = 64
 KERNEL_SEQ_MULTIPLE = 128
+KERNEL_BLOCK_K = 128  # K1's online-softmax unit (csrc/flash_fwd.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -80,6 +82,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kv_valid, scale, block_q, block_k):
         if q.is_cuda:
+            check_kernel_block_k(block_k)
             o, lse = flash_fwd_cuda(q, k, v, kv_valid, scale)
         else:
             o, lse = flash_attention_plain(q, k, v, kv_valid, scale, block_q, block_k)
@@ -216,6 +219,18 @@ def flash_bwd_dkv_plain(q, k, v, kv_valid, do, lse, drow, scale, block_q=128):
 
 
 # ------------------------------------------------------------------ kernels
+def check_kernel_block_k(block_k: int) -> None:
+    """K1 rescales its online softmax once per ``KERNEL_BLOCK_K`` keys, as
+    the TPU kernel at its default block does; another ``block_k`` rounds p
+    relative to other maxima, a differently rounded function, so the CUDA
+    path refuses it instead of ignoring it."""
+    if block_k != KERNEL_BLOCK_K:
+        raise ValueError(
+            f"flash_attention: the CUDA kernel rescales per {KERNEL_BLOCK_K} keys; "
+            f"block_k={block_k} would compute a differently rounded function"
+        )
+
+
 def _kernel_operands(name: str, *tensors: torch.Tensor) -> list[torch.Tensor]:
     """The [bh, seq, d] operands of a kernel, checked for what the kernels
     run (CUDA, one dtype of fp32/bf16/fp16, one shape, head_dim 64, seq a
@@ -369,16 +384,32 @@ def flash_bwd_dkv_cuda(
     return dk, dv
 
 
+def flash_fwd_blocks_per_sm(dtype: torch.dtype, device: torch.device) -> int:
+    """Blocks of K1 for ``dtype`` that one SM of ``device`` holds at once
+    (the occupancy its registers and shared memory allow)."""
+    lib = _library("flash_fwd", device)
+    with torch.cuda.device(device):
+        n = lib.flash_fwd_blocks_per_sm(_DTYPE_CODES[dtype])
+    if n < 0:
+        raise RuntimeError("flash_fwd_blocks_per_sm failed")
+    return n
+
+
 flash_fwd_cuda.launches = 0
 flash_bwd_dq_cuda.launches = 0
 flash_bwd_dkv_cuda.launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# Argument types of each library's entry points: (dtype, pointers..., bh,
-# seq, d, scale, stream). ctypes would cut an untyped pointer to 32 bits.
+# Argument types of each library's entry points: the launches take (dtype,
+# pointers..., bh, seq, d, scale, stream); flash_fwd_blocks_per_sm (dtype)
+# is the kernel's occupancy on the current device. ctypes would cut an
+# untyped pointer to 32 bits.
 _ENTRY_POINTS = {
-    "flash_fwd": {"flash_fwd": [_I] + [_P] * 6 + [_I, _I, _I, ctypes.c_float, _P]},
+    "flash_fwd": {
+        "flash_fwd": [_I] + [_P] * 6 + [_I, _I, _I, ctypes.c_float, _P],
+        "flash_fwd_blocks_per_sm": [_I],
+    },
     "flash_bwd": {
         "flash_bwd_dq": [_I] + [_P] * 8 + [_I, _I, _I, ctypes.c_float, _P],
         "flash_bwd_dkv": [_I] + [_P] * 9 + [_I, _I, _I, ctypes.c_float, _P],
