@@ -37,6 +37,16 @@ result line):
             per-tensor distances are drow's residue (they vanish with drow
             from the unrounded o; flash_backward_plain reproduces them);
             time a step and read its device time with the profiler.
+5. resnet   conf/cifar10_imp.yaml as shipped (ResNet-18, CIFAR stem, bf16,
+            batch 512) at CIFAR-10's sizes on synthetic data, one epoch a
+            level: two IMP levels through run_experiment_torch's main (the
+            densities, monotone masks, the rewind of params and BatchNorm
+            statistics to model_init bit for bit, evaluations on the
+            running statistics, no K1/K2/K3 launch); cifar10_er_erk and
+            cifar10_er_snip pruned at init to density 0.1; one fp32 train
+            step on the card against the CPU with TF32 off; the bf16 step's
+            time, device busy share, top kernels and FLOP bound; the trained
+            level 1 served and held against the eval forward.
 
 Prints the card (nvidia-smi name and power limit), a ``kernels`` JSON line,
 and as the last line ``{"ok": true, "device": {...}}``. Needs one CUDA card;
@@ -717,11 +727,13 @@ def _get(url: str) -> str:
 KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 
-def _device_busy_ms(fn, reps: int = 3, inference: bool = True) -> tuple[float, dict, list]:
+def _device_busy_ms(
+    fn, reps: int = 3, inference: bool = True, top: int | None = 5
+) -> tuple[float, dict, list]:
     """Sum of device kernel time per call of ``fn`` from torch.profiler,
-    the part spent in each of the port's kernels (by name), and the five
-    kernels that took the most device time as (name, ms per call). Zeros
-    when the profiler records no device activity."""
+    the part spent in each of the port's kernels (by name), and the ``top``
+    kernels (all with None) that took the most device time as (name, ms
+    per call). Zeros when the profiler records no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -743,8 +755,8 @@ def _device_busy_ms(fn, reps: int = 3, inference: bool = True) -> tuple[float, d
             for name in KERNEL_NAMES:
                 if name in e.key:
                     ours[name] += t / reps / 1e3
-    top = sorted(by_kernel, key=lambda kv: -kv[1])[:5]
-    return total / reps / 1e3, ours, top
+    ranked = sorted(by_kernel, key=lambda kv: -kv[1])[:top]
+    return total / reps / 1e3, ours, ranked
 
 
 def phase_slice() -> dict:
@@ -1146,6 +1158,376 @@ def phase_train() -> dict:
     return {"launches": launches, "step_ms": step_ms, "busy_ms": busy_ms}
 
 
+# ---------------------------------------------------------------- phase 5
+# The ResNet path: conf/cifar10_imp.yaml as shipped (ResNet-18 with the
+# CIFAR stem, 11.17M parameters, bf16, batch 512, SGD lr 0.2, triangular
+# schedule) at CIFAR-10's own 50,000 / 10,000 images. Cut: synthetic data,
+# one epoch per level (150 shipped), two levels (32 reach 0.999).
+RESNET_OVERRIDES = [
+    "dataset_params.dataloader_type=synthetic",
+    "dataset_params.synthetic_num_train=50000",
+    "dataset_params.synthetic_num_test=10000",
+    "experiment_params.epochs_per_level=1",
+]
+RESNET_BATCH = 512
+RESNET_STEPS = 50000 // RESNET_BATCH     # 97 steps per level
+# The card against the CPU, one fp32 train step of the full model at batch
+# 32 with TF32 off: both compute the same fp32 convolutions in other
+# summation orders (~1e-6 relative per value), which the train-mode
+# BatchNorm passes on. Logits and updated running statistics: within 1e-4
+# of their largest magnitude. Gradients: a BatchNorm in train mode gives
+# its input a gradient that sums to zero over the batch, so the gradients
+# of the BatchNorm biases and scales before it are small sums of large
+# terms, and fp32 rounding moves them by ~1e-3 of their norm: on the CPU
+# the fp32 gradient of this model lies 1.5e-3 (median over tensors) and
+# up to 6.7e-3 (a BatchNorm bias) from its float64 gradient, and the first
+# run on an H100 measured 1.4e-3 card vs CPU at layer3_0.BatchNorm_0.bias.
+# So each tensor's card gradient is held to the float64 gradient computed
+# on the CPU: within 1e-3 of its norm plus twice the CPU fp32 gradient's
+# own distance (the card as exact as the CPU); the whole gradient, card
+# against CPU, within 1e-3 of its norm. A wrong layer moves them by O(1).
+CARD_CPU_BATCH = 32
+CARD_CPU_REL = 1e-4
+CARD_CPU_GRAD = 1e-3
+# Served bf16 logits against the harness's eval forward of the same level-1
+# checkpoint on the same images: both run the same bf16 convolutions on
+# the same weights (the engine folds w * m once; the eval forward
+# multiplies it in each time, the same values) at the same batch shape,
+# though cuDNN may pick other algorithms for the two calls; limit: two
+# bf16 ulps (2^-7) of the largest logit, at least of 1.
+SERVE_BUCKET = 128
+SERVE_RTOL = 2.0 ** -7
+
+
+class _Recorder:
+    """Records, from inside the driver's run, each level's starting
+    parameters and statistics, and that every evaluation ran in eval mode
+    and left the running statistics as they were."""
+
+    def __init__(self):
+        self.starts = {}
+        self.evals = []
+
+    def harness_cls(self):
+        from turboprune_tpu_torch.harness import PruningHarness
+
+        recorder = self
+
+        class Harness(PruningHarness):
+            def train_one_level(self, epochs_per_level, level):
+                recorder.starts[level] = {
+                    k: v.detach().cpu().clone()
+                    for k, v in self.state.model.state_dict().items()}
+                return super().train_one_level(epochs_per_level, level)
+
+            def evaluate(self):
+                before = [b.clone() for b in self.state.model.buffers()]
+                out = super().evaluate()
+                same = all(bool((a == b).all())
+                           for a, b in zip(before, self.state.model.buffers()))
+                recorder.evals.append((not self.state.model.training, same))
+                return out
+
+        return Harness
+
+
+def _run_config(name: str, overrides: list, recorder=None) -> tuple[int, Path, float]:
+    """run_experiment_torch's main on ``name``; with a recorder, the driver
+    builds the recorder's harness (the same PruningHarness, instrumented)."""
+    from unittest import mock
+
+    import torch
+
+    import run_experiment_torch
+    from turboprune_tpu_torch import driver
+
+    base = overrides[-1].split("=", 1)[1]
+    before = set(Path(base).iterdir()) if Path(base).exists() else set()
+    patch = (mock.patch.object(driver, "PruningHarness", recorder.harness_cls())
+             if recorder else contextlib.nullcontext())
+    t0 = time.perf_counter()
+    with patch:
+        rc = run_experiment_torch.main(["--device", "cuda", f"--config-name={name}", *overrides])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    (expt,) = set(Path(base).iterdir()) - before
+    return rc, expt, wall
+
+
+def _resnet_macs(model, image: int) -> int:
+    """Multiply-accumulates of one image's forward: every convolution
+    (output size x input channels x kernel area) and the head."""
+    import torch
+
+    macs = []
+
+    def conv_hook(module, args, out):
+        macs.append(out[0].numel() * module.in_channels * module.weight[0, 0].numel())
+
+    def fc_hook(module, args, out):
+        macs.append(module.in_features * module.out_features)
+
+    hooks = [m.register_forward_hook(conv_hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    hooks.append(model.fc.register_forward_hook(fc_hook))
+    model.eval()
+    with torch.no_grad():
+        model(torch.zeros(1, image, image, 3, device=next(model.parameters()).device))
+    for h in hooks:
+        h.remove()
+    return sum(macs)
+
+
+def _kernel_kind(name: str) -> str:
+    """convolution (cuDNN's kernels), reduction, elementwise or other, by
+    the kernel's name."""
+    low = name.lower()
+    if any(k in low for k in ("fprop", "dgrad", "wgrad", "conv", "xmma", "cutlass",
+                              "implicit", "gemm", "cudnn")):
+        return "convolution"
+    if "reduce" in low:
+        return "reduction"
+    if "elementwise" in low:
+        return "elementwise"
+    return "other"
+
+
+def _card_vs_cpu(masks: dict) -> None:
+    """One fp32 train step's logits, updated running statistics and
+    gradients of the full ResNet-18 at batch 32, on the card and on the
+    CPU, from the same weights (seed), masks and batch; TF32 off; the
+    float64 gradient on the CPU as the reference."""
+    import copy
+
+    import torch
+
+    from turboprune_tpu_torch.data.augment import CIFAR10_MEAN, CIFAR10_STD, normalize_uint8
+    from turboprune_tpu_torch.data.synthetic import synthetic_arrays
+    from turboprune_tpu_torch.models import create_model
+    from turboprune_tpu_torch.train import cross_entropy_sum, masked_forward
+
+    x, y = synthetic_arrays(CARD_CPU_BATCH, 32, 10, seed=11)
+    images = normalize_uint8(torch.from_numpy(x), CIFAR10_MEAN, CIFAR10_STD)
+    labels = torch.from_numpy(y).long()
+    cpu = create_model("resnet18", 10, "CIFAR10").init_weights(torch.Generator().manual_seed(0))
+    exact = copy.deepcopy(cpu).double()
+    for module in exact.modules():
+        if hasattr(module, "dtype"):
+            module.dtype = torch.float64
+    # The head casts its input to fp32; in float64 it takes the float64 pool.
+    exact.fc.forward = lambda z, fc=exact.fc: torch.nn.functional.linear(
+        z.double(), fc.weight, fc.bias)
+    runs = (("cpu", cpu, torch.float32), ("cuda", copy.deepcopy(cpu).cuda(), torch.float32),
+            ("float64", exact, torch.float64))
+    out = {}
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, model, dtype in runs:
+            dev = "cuda" if name == "cuda" else "cpu"
+            model.train()
+            params = dict(model.named_parameters())
+            logits = masked_forward(model, {p: v.to(dev) for p, v in masks.items()},
+                                    images.to(dev, dtype))
+            loss = cross_entropy_sum(logits, labels.to(dev)) / CARD_CPU_BATCH
+            grads = torch.autograd.grad(loss, list(params.values()))
+            out[name] = (logits.detach().cpu().double(),
+                         {k: v.cpu().double() for k, v in model.named_buffers()},
+                         {k: g.cpu().double() for k, g in zip(params, grads)})
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lc, bc, gc), (lg, bg, gg), (_, _, g64) = out["cpu"], out["cuda"], out["float64"]
+    logit_err = float((lg - lc).abs().max() / lc.abs().max())
+    stat_err = max(float((bg[k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+                   for k, v in bc.items())
+
+    def dist(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    card_cpu = {k: dist(gg[k], g) for k, g in gc.items()}
+    whole = dist(torch.cat([g.reshape(-1) for g in gg.values()]),
+                 torch.cat([g.reshape(-1) for g in gc.values()]))
+    card64 = {k: dist(gg[k], g) for k, g in g64.items()}
+    cpu64 = {k: dist(gc[k], g) for k, g in g64.items()}
+    excess = {k: card64[k] - (CARD_CPU_GRAD + 2 * cpu64[k]) for k in g64}
+    worst = max(card_cpu, key=card_cpu.get)
+    tight = max(excess, key=excess.get)
+    log(f"resnet card vs cpu: one fp32 train step of ResNet-18 (full width) at batch "
+        f"{CARD_CPU_BATCH}, TF32 off for this check (cudnn.allow_tf32 and "
+        "cuda.matmul.allow_tf32 False; PyTorch's cuDNN default is on): logits "
+        f"{logit_err:.3e} of their largest (limit {CARD_CPU_REL}), running statistics "
+        f"{stat_err:.3e} (limit {CARD_CPU_REL}); gradients card vs cpu: whole {whole:.3e} of "
+        f"its norm (limit {CARD_CPU_GRAD}), per tensor median "
+        f"{statistics.median(card_cpu.values()):.3e}, worst {card_cpu[worst]:.3e} at {worst}; "
+        f"from the float64 gradient: card median {statistics.median(card64.values()):.3e}, "
+        f"cpu fp32 median {statistics.median(cpu64.values()):.3e}; closest to the per-tensor "
+        f"limit (1e-3 + 2 x cpu's): {tight} card {card64[tight]:.3e}, cpu {cpu64[tight]:.3e}")
+    if (logit_err > CARD_CPU_REL or stat_err > CARD_CPU_REL or whole > CARD_CPU_GRAD
+            or excess[tight] > 0):
+        raise AssertionError("the card's fp32 ResNet step disagrees with the CPU's")
+
+
+def phase_resnet() -> dict:
+    import torch
+
+    from turboprune_tpu_torch.config.compose import compose
+    from turboprune_tpu_torch.harness import PruningHarness
+    from turboprune_tpu_torch.ops import flash, masking
+    from turboprune_tpu_torch.pruning import erk_densities
+    from turboprune_tpu_torch.serve import InferenceEngine
+    from turboprune_tpu_torch.train import masked_forward
+    from turboprune_tpu_torch.utils import ExperimentCheckpoints, model_state_dict
+
+    counters = (flash.flash_fwd_cuda, flash.flash_bwd_dq_cuda, flash.flash_bwd_dkv_cuda)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resnet_") as base:
+        # ---- IMP: the main path, with every count at 0 just before it
+        recorder = _Recorder()
+        overrides = RESNET_OVERRIDES + ["pruning_params.target_sparsity=0.2",
+                                        f"experiment_params.base_dir={base}/imp"]
+        for c in counters:
+            c.launches = 0
+        rc, expt, wall = _run_config("cifar10_imp", overrides, recorder)
+        launches = {c.__name__: c.launches for c in counters}
+        # ---- end of the main path
+        log(f"resnet imp: run_experiment_torch main --config-name=cifar10_imp -> {rc} in "
+            f"{wall:.1f} s (data generation, init, checkpoints included); K1/K2/K3 "
+            f"launches {launches} (the ResNet path runs none of them)")
+        if rc != 0 or any(launches.values()):
+            raise AssertionError(f"cifar10_imp returned {rc}, launches {launches}")
+        rows = [r for lvl in (0, 1) for r in _read_csv(
+            expt / "metrics" / "level_wise_metrics" / f"level_{lvl}_metrics.csv")]
+        for r in rows:
+            log(f"resnet imp level {r['level']}: train_loss {float(r['train_loss']):.4f} "
+                f"test_loss {float(r['test_loss']):.4f} test_acc {float(r['test_acc']):.2f}% "
+                f"{float(r['samples_per_sec']):.1f} img/s over the epoch "
+                f"({RESNET_STEPS} steps, {float(r['epoch_seconds']):.2f} s)")
+        losses = [float(r[k]) for r in rows for k in ("train_loss", "test_loss")]
+        if len(rows) != 2 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"expected two levels of finite losses, got {losses}")
+        ckpts = ExperimentCheckpoints(expt)
+        init, level0, level1 = (ckpts.load_model("model_init"), ckpts.load_level(0),
+                                ckpts.load_level(1))
+        d0, d1 = (masking.overall_density(level0["masks"]),
+                  masking.overall_density(level1["masks"]))
+        n = masking.num_prunable(level1["masks"])
+        monotone = all(bool((level1["masks"][p] <= level0["masks"][p]).all())
+                       for p in level0["masks"])
+        start = recorder.starts[1]
+        rewound = {k: bool(torch.equal(start[k], v)) for k, v in model_state_dict(init).items()}
+        stats = [k for k in init["batch_stats"]]
+        log(f"resnet imp: densities {d0:.6f} / {d1:.6f} over {n} prunable weights (ladder "
+            f"1.0 / 0.8, to 1/N); masks monotone {monotone}; level 1 starts from model_init "
+            f"bit for bit: {sum(rewound[k] for k in init['params'])}/{len(init['params'])} "
+            f"params, {sum(rewound[k] for k in stats)}/{len(stats)} batch_stats; "
+            f"evaluations in eval mode, running statistics untouched: {recorder.evals}")
+        if (d0 != 1.0 or abs(d1 - 0.8) > 1.0 / n or not monotone or not all(rewound.values())
+                or len(recorder.evals) != 2 or not all(a and b for a, b in recorder.evals)):
+            raise AssertionError("IMP densities, masks, rewind or eval mode are wrong")
+
+        # ---- prune at init: ER-ERK and SNIP, one level at density 0.1
+        for name in ("cifar10_er_erk", "cifar10_er_snip"):
+            over = RESNET_OVERRIDES + ["experiment_params.max_steps_per_epoch=4",
+                                       f"experiment_params.base_dir={base}/{name}"]
+            for c in counters:
+                c.launches = 0
+            rc, pexpt, wall = _run_config(name, over)
+            launches = {c.__name__: c.launches for c in counters}
+            pinit = ExperimentCheckpoints(pexpt).load_model("model_init")
+            masks = pinit["masks"]
+            n = masking.num_prunable(masks)
+            density = masking.overall_density(masks)
+            if name == "cifar10_er_erk":
+                per_layer = erk_densities(masks, 0.1)
+                worst = max(
+                    abs(int(m.sum()) - m.numel() * per_layer[p])
+                    / math.sqrt(m.numel() * per_layer[p] * (1 - per_layer[p]) or 1.0)
+                    for p, m in masks.items())
+                ok = abs(density - 0.1) * n <= 4 * math.sqrt(n * 0.09) and worst <= 4
+                detail = (f"{abs(density - 0.1) * n / math.sqrt(n * 0.09):.2f} sigma overall, "
+                          f"worst layer {worst:.2f} sigma from its erk_densities value")
+            else:
+                untouched = all(bool((v == (1.0 if k.endswith(".var") else 0.0)).all())
+                                for k, v in pinit["batch_stats"].items())
+                ok = abs(density - 0.1) <= 1.0 / n and untouched
+                detail = (f"exact to 1/N {abs(density - 0.1) <= 1.0 / n}; every BatchNorm "
+                          f"buffer as initialised after the scoring: {untouched}")
+            log(f"resnet {name}: main -> {rc} in {wall:.1f} s; density {density:.6f} over "
+                f"{n} ({detail}); K1/K2/K3 launches {launches}")
+            if rc != 0 or not ok or any(launches.values()):
+                raise AssertionError(f"{name}: wrong density or statistics")
+
+        # ---- the card against the CPU, fp32, TF32 off
+        _card_vs_cpu(level1["masks"])
+
+        # ---- the bf16 train step at batch 512
+        harness = PruningHarness(
+            compose("cifar10_imp", RESNET_OVERRIDES[:1] + [
+                "dataset_params.synthetic_num_train=512",
+                "dataset_params.synthetic_num_test=512",
+                f"experiment_params.base_dir={base}/timing"]),
+            ("", str(Path(base) / "timing")), device="cuda")
+        harness.setup_level(1)
+        batch = next(iter(harness.loaders.train_loader))
+
+        def step():
+            return harness._train_step(harness.state, batch)
+
+        step_ms = _call_ms(step, reps=5, warmup=2)
+        busy_ms, _, kernels = _device_busy_ms(step, reps=3, inference=False, top=None)
+        top = kernels[:5]
+        kinds: dict = {}
+        for name, ms in kernels:
+            kind = kinds.setdefault(_kernel_kind(name), [0.0, 0])
+            kind[0] += ms
+            kind[1] += 1
+        macs = _resnet_macs(harness.state.model, 32)
+        flops = 3 * 2 * macs * RESNET_BATCH
+        bound_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        log(f"resnet train step (ResNet-18 CIFAR, batch {RESNET_BATCH}, bf16): {step_ms:.3f} ms "
+            "(CUDA events around one step, host work included, median of 5); "
+            + (f"device busy {busy_ms:.3f} ms per step (torch.profiler, 3 steps), idle "
+               f"{max(0.0, 1 - busy_ms / step_ms) * 100:.1f}%; " if busy_ms else
+               "device busy time not measured (the profiler saw no device activity); ")
+            + f"FLOP bound {flops / 1e12:.3f} TFLOP ({macs / 1e9:.4f} GMAC per image x 2 x 3 x "
+            f"{RESNET_BATCH}) = {bound_ms:.3f} ms at 989 TFLOP/s bf16 dense, "
+            f"{bound_ms / step_ms * 100:.1f}% of the step"
+            + (f", {bound_ms / busy_ms * 100:.1f}% of the busy time" if busy_ms else ""))
+        if top:
+            log("resnet train step top device kernels (ms per step): "
+                + "; ".join(f"{name} {ms:.3f}" for name, ms in top))
+            log("resnet train step device time by kind (ms per step): "
+                + "; ".join(f"{k} {ms:.3f} ({n} kernel names)"
+                            for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+
+        # ---- serve the trained level 1 and hold it against the eval forward
+        engine = InferenceEngine.from_experiment(expt, level=1, buckets=(SERVE_BUCKET,),
+                                                 device="cuda")
+        model = harness.state.model
+        model.load_state_dict(model_state_dict(level1))
+        images = harness.loaders.test_loader._base[:SERVE_BUCKET]
+        model.eval()
+        with torch.no_grad():
+            want = masked_forward(model, {p: m.cuda() for p, m in level1["masks"].items()},
+                                  images).float().cpu().numpy()
+        x = images.cpu().numpy()
+        got = engine.predict(x)
+        err = float(np.abs(got - want).max())
+        limit = SERVE_RTOL * max(1.0, float(np.abs(want).max()))
+        fwd_busy, _, _ = _device_busy_ms(lambda: engine.predict(x), reps=3)
+        top1 = float((got.argmax(-1) == want.argmax(-1)).mean())
+        log(f"resnet serve: level {engine.level} (density {engine.density:.4f}) bucket "
+            f"{SERVE_BUCKET}, eval mode on the running statistics {not engine.model.training}: "
+            f"max |served - eval forward| {err:.3e} at logits up to "
+            f"{float(np.abs(want).max()):.3f} (limit {limit:.3e}), top-1 agreement {top1:.3f}; "
+            f"forward device time {fwd_busy:.3f} ms (torch.profiler, 3 forwards)")
+        if engine.model.training or err > limit:
+            raise AssertionError("served ResNet disagrees with the eval forward")
+    log(f"resnet phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"step_ms": step_ms, "busy_ms": busy_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1163,6 +1545,7 @@ def main() -> int:
     bwd_timing = phase_backward_kernels()
     slice_out = phase_slice()
     train_out = phase_train()
+    phase_resnet()
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s on {card}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_flash_ms")

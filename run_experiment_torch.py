@@ -5,6 +5,9 @@ Usage:
     python run_experiment_torch.py --config-name=imagenet_imp \
         model_params=mp_deit_small model_params.attention_impl=flash \
         dataset_params.dataloader_type=synthetic
+    python run_experiment_torch.py --config-name=cifar10_imp      # ResNet-18, as shipped
+    python run_experiment_torch.py --config-name=cifar10_er_snip \
+        dataset_params.dataloader_type=synthetic
     python run_experiment_torch.py --device cpu --config-name=cifar10_imp ...
 
 Same config groups and dotted overrides as run_experiment.py (composed from

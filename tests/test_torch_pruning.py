@@ -8,10 +8,11 @@ import pytest
 import torch
 
 from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse fixture)
-from torch_port_fixtures import jax_masks, jax_params
+from torch_port_fixtures import TINY, jax_masks, jax_params
 from turboprune_tpu.pruning import generate_densities as jax_generate_densities
 from turboprune_tpu.pruning import prune_mag as jax_prune_mag
 from turboprune_tpu_torch import bridge
+from turboprune_tpu_torch.models.vit import VisionTransformer
 from turboprune_tpu_torch.ops import masking
 from turboprune_tpu_torch.pruning import generate_densities, prune_mag, prune_the_model
 
@@ -62,9 +63,12 @@ def test_prune_mag_is_bit_identical_and_monotone():
 def test_dispatch_keeps_or_refuses():
     params = jax_params(seed=5)
     state, masks = bridge.params_from_flax(params, jax_masks(params, seed=5))
-    assert prune_the_model("just dont", state, masks, 0.5) is masks
-    for method in ("snip", "er_erk", "nm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            prune_the_model(method, state, masks, 0.5)
+    model = VisionTransformer(**TINY, image_size=32)
+    model.load_state_dict(state)
+    assert prune_the_model("just dont", model, masks, 0.5) is masks
+    got = prune_the_model("mag", model, masks, 0.5)
+    assert all(torch.equal(got[p], m) for p, m in prune_mag(state, masks, 0.5).items())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        prune_the_model("nm", model, masks, 0.5)
     with pytest.raises(ValueError, match="Unknown"):
-        prune_the_model("nope", state, masks, 0.5)
+        prune_the_model("nope", model, masks, 0.5)

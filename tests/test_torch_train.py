@@ -1,7 +1,8 @@
 """The port's training layer (turboprune_tpu_torch/train/) against the JAX
-package's: LR schedules, SGD and AdamW, and the train step of a tiny DeiT
+package's: LR schedules, SGD and AdamW, the train step of a tiny DeiT
 with flash attention (the JAX side runs Pallas in interpret mode on the
-CPU, forward and backward).
+CPU, forward and backward), and the train step of a small ResNet-18 with
+its BatchNorm statistics.
 
 Tolerances: schedules rtol 1e-6, atol 1e-7 (the JAX package evaluates them
 in float32, the port in Python floats: a few float32 ulps of base_lr 0.2,
@@ -23,12 +24,14 @@ import pytest
 import torch
 
 from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse fixture)
-from torch_port_fixtures import TINY, images, jax_deit, jax_masks, jax_params
+from torch_port_fixtures import TINY, images, jax_deit, jax_masks, jax_params, seeded_variables
+from turboprune_tpu.models import resnet as jax_resnet
 from turboprune_tpu.train import create_optimizer as jax_create_optimizer
 from turboprune_tpu.train import create_schedule as jax_create_schedule
 from turboprune_tpu.train import create_train_state as jax_create_train_state
 from turboprune_tpu.train import make_train_step as jax_make_train_step
 from turboprune_tpu_torch import bridge
+from turboprune_tpu_torch.models import resnet as tresnet
 from turboprune_tpu_torch.models import vit as tvit
 from turboprune_tpu_torch.train import (
     create_optimizer,
@@ -178,3 +181,54 @@ def test_eval_step_ignores_padded_rows():
     assert float(padded["count"]) == 4.0
     for k in ("loss_sum", "correct", "count"):
         torch.testing.assert_close(padded[k], real[k], rtol=1e-6, atol=1e-6)
+
+
+def test_resnet_train_step_matches_jax_params_and_batch_stats():
+    """One SGD step of a width-8 ResNet-18 (CIFAR stem, fp32) with masks:
+    the loss, the updated params (rtol 1e-4, atol 1e-6, as the DeiT step)
+    and the running statistics the step's train-mode forward moved (rtol
+    1e-5, atol 1e-6, as the forward alone in tests/test_torch_resnet.py).
+    The eval step then runs on those statistics."""
+    jmodel = jax_resnet.resnet18(10, cifar_stem=True, width=8)
+    variables = seeded_variables(jmodel, 16, seed=4)
+    masks = jax_masks(variables["params"], seed=4, keep=0.7)
+    tx = jax_create_optimizer(
+        "SGD", jax_create_schedule("TriangularSchedule", 0.2, 1, 3),
+        momentum=0.9, weight_decay=5e-4,
+    )
+    jstate = jax_create_train_state(jmodel, tx, jax.random.PRNGKey(0), (1, 16, 16, 3),
+                                    variables=variables, masks=masks)
+    jstep = jax.jit(jax_make_train_step(
+        jmodel, tx, jax_create_schedule("TriangularSchedule", 0.2, 1, 3)))
+    state, tmasks = bridge.params_from_flax(variables["params"], masks, variables["batch_stats"])
+    tmodel = tresnet.resnet18(10, cifar_stem=True, width=8)
+    tmodel.load_state_dict(state)
+    tstate = create_train_state(
+        tmodel, create_optimizer("SGD", momentum=0.9, weight_decay=5e-4), tmasks)
+    tstep = make_train_step(create_schedule("TriangularSchedule", 0.2, 1, 3))
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(8, 16, 16, 3)).astype(np.float32)
+    y = rng.integers(0, 10, size=8).astype(np.int32)
+    jstate, jm = jstep(jstate, (jnp.asarray(x), jnp.asarray(y)))
+    tm = tstep(tstate, (torch.from_numpy(x), torch.from_numpy(y).long()))
+    np.testing.assert_allclose(float(tm["loss_sum"]), float(jm["loss_sum"]), rtol=1e-5)
+    ref, _ = bridge.params_from_flax(jax.device_get(jstate.params), None,
+                                     jax.device_get(jstate.batch_stats))
+    got = tstate.model.state_dict()
+    assert got.keys() == ref.keys()
+    for key, want in ref.items():
+        tol = (1e-5, 1e-6) if key.endswith((".mean", ".var")) else (1e-4, 1e-6)
+        np.testing.assert_allclose(got[key].numpy(), want.numpy(), rtol=tol[0], atol=tol[1],
+                                   err_msg=key)
+    tree = tstate.model_tree()
+    assert set(tree["batch_stats"]) == {k for k in got if k.endswith((".mean", ".var"))}
+    assert not set(tree["params"]) & set(tree["batch_stats"])
+    before = {k: v.clone() for k, v in tree["batch_stats"].items()}
+    sums = eval_step(tstate.model, tstate.masks, (torch.from_numpy(x), torch.from_numpy(y).long()))
+    assert all(torch.equal(v, before[k]) for k, v in tstate.model_tree()["batch_stats"].items())
+    jlogits = jmodel.apply({"params": jax.tree.map(
+        lambda p, m: p if m is None else p * m, jax.device_get(jstate.params), masks,
+        is_leaf=lambda z: z is None), "batch_stats": jstate.batch_stats}, jnp.asarray(x),
+        train=False)
+    np.testing.assert_allclose(
+        float(sums["correct"]), float((np.asarray(jlogits).argmax(-1) == y).sum()))

@@ -76,3 +76,29 @@ def images(n=3, seed=0):
     return np.random.default_rng(seed).normal(size=(n, IMAGE, IMAGE, 3)).astype(
         np.float32
     )
+
+
+def seeded_variables(model, image, seed=0):
+    """numpy ``{"params", "batch_stats"}`` for a flax CNN ``model`` at an
+    ``image`` x ``image`` input: seeded normals at the shapes of its
+    variable tree (BatchNorm scale near 1, biases and running means near
+    0, running variances in [1, 1.4), kernels scaled by 1 / sqrt(fan_in))."""
+    shapes = jax.eval_shape(
+        lambda: model.init(
+            jax.random.PRNGKey(0), jnp.zeros((1, image, image, 3)), train=False
+        )
+    )
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        name = jax.tree_util.keystr(path)
+        x = rng.normal(size=s.shape).astype(np.float32)
+        if "scale" in name:
+            return (1.0 + 0.1 * x).astype(np.float32)
+        if "'var'" in name:
+            return (1.0 + 0.1 * np.abs(x)).astype(np.float32)
+        if "'mean'" in name or "bias" in name:
+            return (0.1 * x).astype(np.float32)
+        return (x / np.sqrt(int(np.prod(s.shape[:-1])))).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)

@@ -9,13 +9,14 @@ named after the flax paths (models/vit.py), so the mapping is mechanical:
   [H*hd, D], bias [H, hd] -> [H*hd];
 - ``out`` kernel [H, hd, D] -> Linear weight [D, H*hd];
 - Dense kernel [in, out] -> Linear weight [out, in];
-- LayerNorm scale/bias -> weight/bias;
-- ``cls_token``/``dist_token``/``pos_embed`` as they are.
+- LayerNorm and BatchNorm scale/bias -> weight/bias;
+- ``cls_token``/``dist_token``/``pos_embed`` as they are;
+- BatchNorm ``batch_stats`` ``{mean, var}`` -> the buffers ``mean``/``var``
+  of ``models/resnet.py::FlaxBatchNorm2d``.
 
 Masks take the same transforms as their kernels and are keyed by the flax
 path name (``block0/attn/query/kernel``). Every transform is a transpose or
-a reshape, so a round trip is bit-exact. DeiT has no BatchNorm; its mapping
-comes with the CNN slice.
+a reshape, so a round trip is bit-exact.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 _HEAD_SPLIT_IN = ("query", "key", "value")  # kernel [D, H, hd]
 _HEAD_SPLIT_OUT = ("out",)  # kernel [H, hd, D]
+_BATCH_STATS = ("mean", "var")  # BatchNorm buffers, flax's batch_stats leaves
 
 
 def _leaves(tree: Mapping, prefix: tuple = ()):
@@ -56,13 +58,20 @@ def _to_tensor(a: Any) -> torch.Tensor:
 
 
 def params_from_flax(
-    params: Mapping, masks: Optional[Mapping] = None
+    params: Mapping,
+    masks: Optional[Mapping] = None,
+    batch_stats: Optional[Mapping] = None,
 ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
-    """(state_dict, masks) for the port from a flax params tree and its
-    optional mask tree (bool at kernels, None elsewhere). Without a mask
-    tree the mask dict is empty."""
+    """(state_dict, masks) for the port from a flax params tree, its
+    optional mask tree (bool at kernels, None elsewhere) and its optional
+    ``batch_stats`` tree, whose leaves become the BatchNorm buffers of the
+    state_dict. Without a mask tree the mask dict is empty."""
     mask_leaves = dict(_leaves(masks)) if masks is not None else {}
     state: dict[str, torch.Tensor] = {}
+    for path, a in _leaves(batch_stats or {}):
+        if path[-1] not in _BATCH_STATS:
+            raise KeyError(f"no torch buffer for flax batch_stats {'/'.join(path)}")
+        state[".".join(path)] = _to_tensor(np.asarray(a))
     out_masks: dict[str, torch.Tensor] = {}
     for path, a in _leaves(params):
         a = np.asarray(a)
@@ -113,12 +122,15 @@ def params_to_flax(
     """Inverse of ``params_from_flax``: (flax params tree, flax mask tree
     or None) as numpy. ``num_heads`` splits the attention projections back
     into their [D, H, hd] / [H, hd, D] kernels. The mask tree mirrors the
-    params tree with None at every non-kernel leaf."""
+    params tree with None at every non-kernel leaf. BatchNorm buffers are
+    not params: ``batch_stats_to_flax`` takes them."""
     params: dict = {}
     mask_tree: Optional[dict] = {} if masks is not None else None
     for key, t in state_dict.items():
         a = t.detach().cpu().numpy()
         parts = tuple(key.split("."))
+        if len(parts) > 1 and parts[-1] in _BATCH_STATS:
+            continue
         if len(parts) == 1:
             _set(params, parts, a)
             if mask_tree is not None:
@@ -146,3 +158,14 @@ def params_to_flax(
                 m = _kernel_to_flax(module[-1], m.detach().cpu().numpy(), num_heads)
             _set(mask_tree, path, m)
     return params, mask_tree
+
+
+def batch_stats_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The flax ``batch_stats`` tree (numpy) of the BatchNorm buffers in
+    ``state_dict``; empty for a model without BatchNorm."""
+    tree: dict = {}
+    for key, t in state_dict.items():
+        parts = tuple(key.split("."))
+        if len(parts) > 1 and parts[-1] in _BATCH_STATS:
+            _set(tree, parts, t.detach().cpu().numpy())
+    return tree

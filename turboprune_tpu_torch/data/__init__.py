@@ -1,8 +1,8 @@
 """Input pipelines (port of ``turboprune_tpu/data/__init__.py``).
 
 ``create_loaders`` builds the loader pair for a config on a device. The
-synthetic loaders are ported; the CIFAR files on disk, grain and the
-native .tpk loader come with later slices and raise here.
+synthetic loaders and the device CIFAR loader (local files) are ported;
+grain and the native .tpk loader come with a later slice and raise here.
 """
 
 from __future__ import annotations
@@ -11,11 +11,10 @@ from typing import Any
 
 import torch
 
-from .cifar import DeviceCifarLoader
+from .cifar import CifarLoaders, DeviceCifarLoader, cache_cifar_npz, load_cifar_arrays
 from .synthetic import SyntheticLoaders, synthetic_arrays
 
 NOT_YET_PORTED = {
-    "device": "ROADMAP.md queue A, item 10",
     "grain": "ROADMAP.md queue A, item 14",
     "tpk": "ROADMAP.md queue A, item 14",
 }
@@ -37,6 +36,16 @@ def create_loaders(cfg, device: str | torch.device = "cuda") -> Any:
             snr=dp.synthetic_snr,
             device=device,
         )
+    if dp.dataloader_type == "device":
+        if dp.dataset_name not in ("CIFAR10", "CIFAR100"):
+            raise ValueError("dataloader_type=device is for CIFAR")
+        return CifarLoaders(
+            data_root_dir=dp.data_root_dir,
+            dataset_name=dp.dataset_name,
+            batch_size=dp.total_batch_size,
+            seed=cfg.experiment_params.seed,
+            device=device,
+        )
     if dp.dataloader_type in NOT_YET_PORTED:
         raise NotImplementedError(
             f"dataloader_type={dp.dataloader_type!r} is not yet ported to "
@@ -46,4 +55,12 @@ def create_loaders(cfg, device: str | torch.device = "cuda") -> Any:
     raise ValueError(f"Unknown dataloader_type: {dp.dataloader_type}")
 
 
-__all__ = ["create_loaders", "DeviceCifarLoader", "SyntheticLoaders", "synthetic_arrays"]
+__all__ = [
+    "CifarLoaders",
+    "DeviceCifarLoader",
+    "SyntheticLoaders",
+    "cache_cifar_npz",
+    "create_loaders",
+    "load_cifar_arrays",
+    "synthetic_arrays",
+]

@@ -8,12 +8,11 @@ deterministic parts exactly (normalisation, reflect padding, the crop at
 given offsets, the altflip) and the random parts by their structure.
 
   - normalize once with dataset mean/std
-  - ``flip``: one random per-image pre-flip at epoch 0, then flip the
-    ENTIRE set on odd epochs (the reference's altflip)
+  - ``flip``: one random per-image pre-flip at epoch 0, then under
+    ``altflip`` flip the ENTIRE set on odd epochs; without altflip, fresh
+    random flips each epoch
   - ``translate=r``: reflect-pad by r then a random (sy, sx) crop per image
-
-The JAX package's cutout and i.i.d. per-epoch flips (``altflip=False``)
-have no caller in its loaders' configurations and are not ported.
+  - ``cutout=s``: zero a random s x s square per image
 """
 
 from __future__ import annotations
@@ -89,6 +88,29 @@ def batch_translate_crop(
     return crop_at(padded, sy, sx, crop_size)
 
 
+def cutout_at(
+    images: torch.Tensor, cy: torch.Tensor, cx: torch.Tensor, size: int
+) -> torch.Tensor:
+    """Zero the ``size`` x ``size`` square at (cy[i], cx[i]) of each image."""
+    _, h, w, _ = images.shape
+    ys = torch.arange(h, device=images.device).reshape(1, h, 1, 1)
+    xs = torch.arange(w, device=images.device).reshape(1, 1, w, 1)
+    cy = cy.reshape(-1, 1, 1, 1)
+    cx = cx.reshape(-1, 1, 1, 1)
+    in_square = (ys >= cy) & (ys < cy + size) & (xs >= cx) & (xs < cx + size)
+    return torch.where(in_square, 0.0, images)
+
+
+def batch_cutout(
+    images: torch.Tensor, generator: torch.Generator, size: int
+) -> torch.Tensor:
+    """Zero a random ``size`` x ``size`` square per image."""
+    n, h, w, _ = images.shape
+    cy = torch.randint(0, h - size + 1, (n,), generator=generator, device=images.device)
+    cx = torch.randint(0, w - size + 1, (n,), generator=generator, device=images.device)
+    return cutout_at(images, cy, cx, size)
+
+
 def augment_epoch(
     preflipped_padded: torch.Tensor,
     generator: torch.Generator,
@@ -97,13 +119,23 @@ def augment_epoch(
     crop_size: int,
     flip: bool = True,
     translate: int = 2,
+    cutout: int = 0,
+    altflip: bool = True,
 ) -> torch.Tensor:
     """Augment the ENTIRE training set for one epoch. The input is the
     epoch-0 preprocessed set: normalized, pre-flipped (if ``flip``),
-    reflect-padded (if ``translate``)."""
+    reflect-padded (if ``translate``). Applies the random crop, the flip
+    (the altflip's whole-set flip on odd epochs, or fresh random flips),
+    then cutout."""
     images = preflipped_padded
     if translate > 0:
         images = batch_translate_crop(images, generator, crop_size)
-    if flip and epoch % 2 == 1:
-        images = images.flip(2)
+    if flip:
+        if altflip:
+            if epoch % 2 == 1:
+                images = images.flip(2)
+        else:
+            images = batch_flip_lr(images, generator)
+    if cutout > 0:
+        images = batch_cutout(images, generator, cutout)
     return images

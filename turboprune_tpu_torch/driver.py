@@ -14,11 +14,13 @@ from typing import Optional, Type
 import torch
 
 from .config.schema import MainConfig
+from .data.cifar import derived_generator
 from .harness import PruningHarness
 from .ops import masking
-from .pruning import generate_densities, prune_the_model
+from .pruning import DATA_DRIVEN_METHODS, generate_densities, prune_the_model
 from .utils import (
     gen_expt_dir,
+    model_state_dict,
     reset_weights,
     resolve_device,
     resume_experiment,
@@ -28,23 +30,38 @@ from .utils import (
 
 
 def restore_level(harness: PruningHarness, level: int) -> None:
-    """Load ``model_level_{level}``'s params and masks into the harness."""
+    """Load ``model_level_{level}``'s params, batch_stats and masks into
+    the harness."""
     restored = harness.ckpts.load_level(level)
-    harness.state.model.load_state_dict(restored["params"])
+    harness.state.model.load_state_dict(model_state_dict(restored))
     harness.state.masks = {
         p: m.to(harness.device) for p, m in restored["masks"].items()
     }
 
 
+def _first_train_batch(harness: PruningHarness) -> tuple:
+    """The scoring batch of the data-driven criteria: the first batch of a
+    pass over the train loader. As in the JAX package, taking it starts an
+    epoch of the loader (its epoch counter moves on), so the epochs trained
+    after the prune see the same augmentation and shuffle streams as the
+    JAX package's."""
+    for batch in harness.loaders.train_loader:
+        return batch
+    raise RuntimeError("empty train loader")
+
+
 def prune_level(harness: PruningHarness, density: float, level: int) -> None:
     """Prune the harness state to ``density``, then rewind the weights as
-    ``training_type`` says (masks survive the rewind)."""
+    ``training_type`` says (masks survive the rewind). The random criteria
+    draw from a generator derived from (seed, level), on the device."""
     cfg = harness.cfg
     method = cfg.pruning_params.prune_method
     state = harness.state
+    generator = derived_generator(harness.device, cfg.experiment_params.seed, level, "prune")
+    batch = _first_train_batch(harness) if method in DATA_DRIVEN_METHODS else None
     before = masking.overall_sparsity(state.masks)
-    with torch.no_grad():
-        state.masks = prune_the_model(method, state.model.state_dict(), state.masks, density)
+    state.masks = prune_the_model(method, state.model, state.masks, density,
+                                  generator=generator, batch=batch)
     after = masking.overall_sparsity(state.masks)
     print(
         f"[prune] level {level}: {method} to density {density:.4f} "

@@ -1,10 +1,14 @@
 """PruningHarness — the training runtime (port of
 ``turboprune_tpu/harness/pruning_harness.py``).
 
-Builds the model, loaders, optimizer and checkpoints from the config on one
-device and owns a level's epoch loop: per-level fresh optimizer and
-schedule, the level-0 ``model_init``/``optimizer_init`` saves, the rewind
-snapshot at ``rewind_epoch``, per-epoch train and test passes, CSV rows.
+Builds the model (a DeiT or a CNN, ``models.create_model``), loaders,
+optimizer and checkpoints from the config on one device and owns a level's
+epoch loop: per-level fresh optimizer and schedule, the level-0
+``model_init``/``optimizer_init`` saves, the rewind snapshot at
+``rewind_epoch``, per-epoch train and test passes, CSV rows. A CNN's
+BatchNorm running statistics live in the model's buffers: the train step
+moves them, the eval step reads them, and the model checkpoints carry
+them as ``batch_stats``.
 The JAX package runs a step (or a whole epoch) as one compiled program;
 here a step is eager PyTorch in a Python loop, and the metric sums stay on
 the device until the epoch's end.

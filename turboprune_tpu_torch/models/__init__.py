@@ -1,8 +1,8 @@
 """Model registry (port of ``turboprune_tpu/models/__init__.py``).
 
-The DeiT family is ported. The CNN names of the JAX registry are listed so
-that asking for one says it is not yet ported (ROADMAP.md, queue A) instead
-of claiming the name is unknown.
+The DeiT and ResNet families are ported. VGG and DenseNet are listed so
+that asking for one says it is not yet ported (ROADMAP.md queue A, item
+12) instead of claiming the name is unknown.
 """
 
 from __future__ import annotations
@@ -10,11 +10,20 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
+from torch import nn
 
-from . import vit
+from . import resnet, vit
+from .resnet import ResNet
 from .vit import VisionTransformer
 
 MODEL_REGISTRY: dict[str, Callable] = {
+    "resnet18": resnet.resnet18,
+    "resnet34": resnet.resnet34,
+    "resnet50": resnet.resnet50,
+    "resnet101": resnet.resnet101,
+    "resnet152": resnet.resnet152,
+    "wide_resnet50_2": resnet.wide_resnet50_2,
+    "wide_resnet101_2": resnet.wide_resnet101_2,
     "deit_tiny_patch16_224": vit.deit_tiny_patch16_224,
     "deit_small_patch16_224": vit.deit_small_patch16_224,
     "deit_base_patch16_224": vit.deit_base_patch16_224,
@@ -26,8 +35,7 @@ MODEL_REGISTRY: dict[str, Callable] = {
 }
 
 NOT_YET_PORTED = (
-    "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
-    "wide_resnet50_2", "wide_resnet101_2", "densenet121", "densenet169",
+    "densenet121", "densenet169",
     "vgg11", "vgg11_bn", "vgg13", "vgg13_bn", "vgg16", "vgg16_bn",
     "vgg19", "vgg19_bn",
 )
@@ -42,13 +50,15 @@ def create_model(
     image_size: int = 224,
     width_overrides: Any = None,
     nm_overrides: Any = None,
-) -> VisionTransformer:
-    """Build a registered model. ``image_size`` fixes the DeiT patch grid,
-    which flax infers from the first batch instead."""
+) -> nn.Module:
+    """Build a registered model. CIFAR datasets get the CIFAR stem.
+    ``attention_impl`` and ``image_size`` are the DeiTs' (``image_size``
+    fixes the patch grid, which flax infers from the first batch instead);
+    a CNN takes neither and refuses an attention other than dense."""
     if model_name in NOT_YET_PORTED:
         raise ValueError(
             f"model {model_name!r} is not yet ported to turboprune_tpu_torch "
-            "(the CNN zoo is ROADMAP.md queue A); ported: "
+            "(VGG and DenseNet are ROADMAP.md queue A, item 12); ported: "
             f"{sorted(MODEL_REGISTRY)}"
         )
     if model_name not in MODEL_REGISTRY:
@@ -56,15 +66,22 @@ def create_model(
             f"Model {model_name!r} not in registry: {sorted(MODEL_REGISTRY)}"
         )
     cifar_stem = dataset_name.lower() in ("cifar10", "cifar100")
+    kwargs = {}
+    if model_name.startswith("deit"):
+        kwargs = {"attention_impl": attention_impl, "image_size": image_size}
+    elif attention_impl != "dense":
+        raise ValueError(
+            f"attention_impl={attention_impl!r} requires a ViT model "
+            f"(got {model_name!r})"
+        )
     return MODEL_REGISTRY[model_name](
         num_classes,
         cifar_stem=cifar_stem,
         dtype=compute_dtype,
-        attention_impl=attention_impl,
-        image_size=image_size,
         width_overrides=width_overrides,
         nm_overrides=nm_overrides,
+        **kwargs,
     )
 
 
-__all__ = ["MODEL_REGISTRY", "NOT_YET_PORTED", "VisionTransformer", "create_model"]
+__all__ = ["MODEL_REGISTRY", "NOT_YET_PORTED", "ResNet", "VisionTransformer", "create_model"]

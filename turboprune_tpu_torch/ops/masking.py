@@ -8,6 +8,12 @@ mask (``block0/attn/query/kernel``, as ``path_name`` in the JAX module
 spells it), each value a bool tensor in the torch layout of that weight
 (``bridge.py`` maps the layouts). Non-prunable params have no entry.
 
+A dict's order is torch's module order (``conv1``, ``bn1``, ``layer1_0``,
+…, ``fc``); the JAX package walks its mask tree in flatten order, keys
+sorted at every level (``conv1``, ``fc``, ``layer1_0``, …). Whatever
+depends on the order of the layers (the balanced allocation, one random
+stream drawn layer after layer) walks ``flax_order``.
+
 ``apply_masks`` multiplies the masks into a ``state_dict``; the serving
 engine folds them once at load, so pruned weights are literal zeros.
 """
@@ -62,6 +68,12 @@ def apply_masks(
     return out
 
 
+def flax_order(masks: Masks) -> list[tuple[str, torch.Tensor]]:
+    """(path, mask) in the JAX mask tree's flatten order: dict keys sorted
+    at every level of the path."""
+    return sorted(masks.items(), key=lambda item: tuple(item[0].split("/")))
+
+
 def num_prunable(masks: Masks) -> int:
     return sum(int(m.numel()) for m in masks.values())
 
@@ -97,3 +109,21 @@ def global_threshold_mask(scores: Masks, masks: Masks, density: float) -> Masks:
         return masks
     threshold = torch.kthvalue(flat.cpu(), k).values
     return {p: s.float() > threshold.to(s.device) for p, s in scores.items()}
+
+
+def per_layer_threshold_mask(scores: Masks, densities: dict[str, float]) -> Masks:
+    """Per-layer masking (random_erk / random_balanced): in each layer keep
+    the scores above its k-th smallest, k = int((1 - density) * n). At
+    k <= 0 keep every position with a positive score: scores at pruned
+    positions are exactly 0, so a density-1 layer keeps its mask rather
+    than resurrecting pruned weights (the JAX package's rule)."""
+    out = {}
+    for path, s in scores.items():
+        n = s.numel()
+        k = int((1.0 - densities[path]) * n)
+        if k <= 0:
+            out[path] = s > 0.0
+            continue
+        threshold = torch.kthvalue(s.reshape(-1).float().cpu(), k).values
+        out[path] = s.float() > threshold.to(s.device)
+    return out

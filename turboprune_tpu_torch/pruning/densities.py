@@ -1,17 +1,71 @@
-"""Density ladders and cyclic epoch schedules (host-side math).
+"""Density ladders, per-layer allocations and cyclic epoch schedules
+(host-side math; port of ``turboprune_tpu/pruning/densities.py``).
 
-Port of ``generate_densities`` and ``generate_cyclical_schedule`` from
-``turboprune_tpu/pruning/densities.py`` (the config validation needs the
-second to check ``rewind_epoch`` against level 0's first-cycle budget). The
-per-layer ERK and balanced allocations come with the other criteria
-(ROADMAP.md queue A, item 9).
+The per-layer allocations walk the layers in the JAX mask tree's flatten
+order (``ops/masking.py::flax_order``), so their float sums run in the
+same order and the densities come out equal to the JAX package's. The sum
+of a kernel's shape is the same in the flax (HWIO, [in, out]) and torch
+(OIHW, [out, in]) layouts.
 """
 
 from __future__ import annotations
 
+from ..ops.masking import Masks, flax_order
+
 # "nm" is magnitude IMP + N:M projection: same geometric ladder as "mag".
 ITERATIVE_METHODS = ("mag", "random_erk", "random_balanced", "nm")
 PAI_METHODS = ("er_erk", "er_balanced", "synflow", "snip")
+
+
+def _layer_sizes(masks: Masks) -> list[tuple[str, tuple, int]]:
+    """[(path, shape, numel)] per prunable layer, in flax order."""
+    return [(path, tuple(m.shape), int(m.numel())) for path, m in flax_order(masks)]
+
+
+def erk_densities(masks: Masks, density: float) -> dict[str, float]:
+    """ERK allocation: layer density proportional to sum(kernel shape) /
+    numel, scaled by one factor C so the kept-parameter budget hits
+    ``density``. Layers whose scaled density exceeds 1 are pinned dense and
+    C is recomputed over the rest, to a fixed point (the clamp with
+    water-fill)."""
+    layers = _layer_sizes(masks)
+    raw = {name: sum(shape) / numel for name, shape, numel in layers}
+    sizes = {name: numel for name, _, numel in layers}
+    budget = density * sum(sizes.values())
+    pinned: set[str] = set()
+    c = 0.0
+    while True:
+        rest = [name for name, _, _ in layers if name not in pinned]
+        remaining = budget - sum(sizes[name] for name in pinned)
+        denom = sum(raw[name] * sizes[name] for name in rest)
+        c = remaining / denom if denom > 0 else 0.0
+        overflow = [name for name in rest if c * raw[name] > 1.0]
+        if not overflow or not rest:
+            break
+        pinned.update(overflow)
+    return {
+        name: 1.0 if name in pinned else float(min(max(c * raw[name], 0.0), 1.0))
+        for name, _, _ in layers
+    }
+
+
+def balanced_densities(masks: Masks, density: float) -> dict[str, float]:
+    """Balanced allocation: an equal kept count X = density * total / L per
+    layer; a layer smaller than X saturates at density 1 and its surplus is
+    spread over the layers after it (the ``L - i`` divisor), so the result
+    depends on the walk's order."""
+    layers = _layer_sizes(masks)
+    total = sum(numel for _, _, numel in layers)
+    n_layers = len(layers)
+    x = density * total / n_layers
+    out = {}
+    for i, (name, _, numel) in enumerate(layers):
+        if x / numel < 1.0:
+            out[name] = x / numel
+        else:
+            out[name] = 1.0
+            x = x + (x - numel) / (n_layers - i)
+    return out
 
 
 def generate_densities(

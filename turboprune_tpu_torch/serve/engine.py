@@ -4,7 +4,8 @@
 Loads an experiment-dir checkpoint (``model_level_{L}`` or a role like
 ``model_init``) next to the experiment's own ``expt_config.yaml`` snapshot,
 so a served checkpoint can never be paired with the wrong architecture.
-Masks are folded into the weights ONCE at load time (``w * m`` is exact),
+A checkpoint's batch_stats (a ResNet's BatchNorm running statistics) load
+with its params, and the model serves in eval mode on them. Masks are folded into the weights ONCE at load time (``w * m`` is exact),
 so per-request forwards skip the mask multiply. A request for n rows is
 padded up to the smallest bucket >= n (split at the largest bucket), so the
 device only ever sees the configured batch shapes; ``warmup()`` runs every
@@ -30,7 +31,7 @@ from torch import nn
 
 from ..models import create_model
 from ..ops import masking
-from ..utils.checkpoint import ExperimentCheckpoints, restore_model_tree
+from ..utils.checkpoint import ExperimentCheckpoints, model_state_dict, restore_model_tree
 from ..utils.device import resolve_device
 from ..utils.experiment import load_config
 
@@ -226,7 +227,7 @@ class InferenceEngine:
         restored = restore_model_tree(path)
         return cls(
             model,
-            restored["params"],
+            model_state_dict(restored),
             restored["masks"],
             input_shape=(dp.image_size, dp.image_size, 3),
             buckets=buckets,

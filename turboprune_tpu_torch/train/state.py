@@ -27,9 +27,15 @@ class TrainState:
     step: int = 0                        # optimizer steps this level
 
     def model_tree(self) -> dict:
-        """The checkpoint tree of the model roles: params, masks and the
-        (empty, for a ViT) batch statistics."""
-        return {"params": self.model.state_dict(), "masks": self.masks, "batch_stats": {}}
+        """The checkpoint tree of the model roles, as the JAX package's:
+        the parameters under ``params``, the masks, and the buffers (the
+        BatchNorm running statistics; none for a ViT) under
+        ``batch_stats``, each keyed by its ``state_dict`` name."""
+        return {
+            "params": {k: v.detach() for k, v in self.model.named_parameters()},
+            "masks": self.masks,
+            "batch_stats": {k: v.detach() for k, v in self.model.named_buffers()},
+        }
 
 
 def create_train_state(

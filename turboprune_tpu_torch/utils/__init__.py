@@ -4,6 +4,7 @@ from .checkpoint import (
     OPTIMIZER_INIT,
     OPTIMIZER_REWIND,
     ExperimentCheckpoints,
+    model_state_dict,
     reset_weights,
     restore_model_tree,
     save_model_tree,
@@ -31,6 +32,7 @@ __all__ = [
     "expt_prefix",
     "gen_expt_dir",
     "load_config",
+    "model_state_dict",
     "reset_weights",
     "resolve_device",
     "restore_model_tree",

@@ -9,8 +9,9 @@ Layout under an experiment dir, as in the JAX package:
   artifacts/optimizer_rewind      optimizer state at rewind_epoch
   checkpoints/model_level_{L}     end-of-level weights (next level's input)
 
-A model checkpoint is the tree ``{"params": state_dict, "masks": {flax
-path: bool tensor}, "batch_stats": {...}}``; an optimizer checkpoint is the
+A model checkpoint is the tree ``{"params": {name: parameter}, "masks":
+{flax path: bool tensor}, "batch_stats": {name: buffer}}`` (the BatchNorm
+running statistics are the buffers; ``model_state_dict`` joins the two); an optimizer checkpoint is the
 torch optimizer's ``state_dict``. The port's own format: each role is a
 directory holding ``model.pt`` or ``optimizer.pt`` written by ``torch.save``
 and read with ``weights_only=True`` (tensors and plain containers only,
@@ -19,9 +20,10 @@ are not read here; ``bridge.py`` converts weights between the two. The
 mid-level (epoch-granular) slot is a later slice (ROADMAP.md queue A,
 item 6).
 
-Rewind (``reset_weights``): imp -> params from model_init, wr -> from
-model_rewind, lrr / at_init -> keep the trained weights; masks are never
-restored, so the freshly pruned masks survive a rewind.
+Rewind (``reset_weights``): imp -> params and batch_stats from
+model_init, wr -> from model_rewind, lrr / at_init -> keep the trained
+weights; masks are never restored, so the freshly pruned masks survive a
+rewind.
 """
 
 from __future__ import annotations
@@ -71,6 +73,12 @@ def _restore(path: Path, name: str) -> dict:
     if not f.exists():
         raise FileNotFoundError(f"{f} does not exist (not a port checkpoint?)")
     return torch.load(f, map_location="cpu", weights_only=True)
+
+
+def model_state_dict(tree: dict) -> dict:
+    """The ``state_dict`` of a model checkpoint tree: its params and its
+    batch_stats."""
+    return {**tree["params"], **tree["batch_stats"]}
 
 
 def save_model_tree(path: str | Path, tree: dict) -> None:
@@ -135,8 +143,9 @@ class ExperimentCheckpoints:
 
 
 def reset_weights(training_type: str, state, ckpts: ExperimentCheckpoints):
-    """Post-prune rewind: restore the params of the role's checkpoint into
-    ``state`` (a ``train.TrainState``) and KEEP its just-pruned masks.
+    """Post-prune rewind: restore the params and batch_stats of the role's
+    checkpoint into ``state`` (a ``train.TrainState``) and KEEP its
+    just-pruned masks.
 
       imp      -> model_init
       wr       -> model_rewind
@@ -145,5 +154,5 @@ def reset_weights(training_type: str, state, ckpts: ExperimentCheckpoints):
     """
     role = {"imp": MODEL_INIT, "wr": MODEL_REWIND}.get(training_type)
     if role is not None:
-        state.model.load_state_dict(ckpts.load_model(role)["params"])
+        state.model.load_state_dict(model_state_dict(ckpts.load_model(role)))
     return state
