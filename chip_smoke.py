@@ -47,6 +47,22 @@ result line):
             step on the card against the CPU with TF32 off; the bf16 step's
             time, device busy share, top kernels and FLOP bound; the trained
             level 1 served and held against the eval forward.
+6. resume   conf/cifar10_imp.yaml as shipped, 3 epochs of 4 steps a level,
+            the mid-level slot saved every epoch, through
+            run_experiment_torch's main: two uninterrupted runs (a, a'),
+            a run preempted right after its level-1, epoch-0 slot save
+            (its header and config hash checked), and its resume: the
+            restored state equal to the saved one bit for bit (params,
+            BatchNorm statistics, masks, momentum, step, loader epoch), the
+            end state equal to run a's (or within twice a' - a where cuDNN
+            is not deterministic run to run), every epoch in the level CSV,
+            no slot left; the slot's bytes, save and restore times.
+7. cyclic   run_cyclic_training_experiment_torch's main on DeiT-Small/16 @
+            224 with flash attention, 4 cycles a level (ct_constant_4), two
+            levels: the cycle column, each cycle's per-step lr equal to a
+            fresh schedule from step 0, finite losses, densities 1.0 / 0.8,
+            model_init saved before the first step, and K1/K2/K3 launched
+            12 times per forward / backward.
 
 Prints the card (nvidia-smi name and power limit), a ``kernels`` JSON line,
 and as the last line ``{"ok": true, "device": {...}}``. Needs one CUDA card;
@@ -1528,6 +1544,331 @@ def phase_resnet() -> dict:
     return {"step_ms": step_ms, "busy_ms": busy_ms}
 
 
+# ---------------------------------------------------------------- phase 6
+# Resume: conf/cifar10_imp.yaml as shipped (ResNet-18, CIFAR stem, bf16,
+# batch 512, SGD lr 0.2, triangular schedule). Cut: synthetic data, 8,192 /
+# 2,048 images, 3 epochs of at most 4 steps a level, two levels; the slot
+# saved after every epoch.
+RESUME_OVERRIDES = [
+    "dataset_params.dataloader_type=synthetic",
+    "dataset_params.synthetic_num_train=8192",
+    "dataset_params.synthetic_num_test=2048",
+    "experiment_params.epochs_per_level=3",
+    "experiment_params.checkpoint_every_epochs=1",
+    "experiment_params.max_steps_per_epoch=4",
+    "pruning_params.target_sparsity=0.2",
+]
+RESUME_EPOCH_STEPS = 4
+FULL_EPOCH_STEPS = 50000 // RESNET_BATCH
+
+
+def _train_snapshot(harness) -> dict:
+    """The state a resume must give back, on the CPU: params and BatchNorm
+    statistics, masks, SGD momentum, the level's step, the loader's epoch."""
+    s = harness.state
+    return {
+        "state": {k: v.detach().cpu().clone() for k, v in s.model.state_dict().items()},
+        "masks": {p: m.cpu().clone() for p, m in s.masks.items()},
+        "momentum": {i: st["momentum_buffer"].cpu().clone()
+                     for i, st in s.optimizer.state_dict()["state"].items()},
+        "step": s.step,
+        "loader_epoch": harness.loaders.train_loader.epoch,
+    }
+
+
+def _snapshot_diff(a: dict, b: dict) -> dict:
+    """Which parts of two snapshots differ, and the L2 distance of their
+    params and statistics."""
+    import torch
+
+    dist = math.sqrt(sum(float((a["state"][k].double() - v.double()).pow(2).sum())
+                         for k, v in b["state"].items()))
+    return {
+        "state_equal": all(torch.equal(a["state"][k], v) for k, v in b["state"].items()),
+        "masks_equal": all(torch.equal(a["masks"][p], m) for p, m in b["masks"].items()),
+        "momentum_equal": a["momentum"].keys() == b["momentum"].keys() and all(
+            torch.equal(a["momentum"][i], m) for i, m in b["momentum"].items()),
+        "step_equal": a["step"] == b["step"],
+        "loader_epoch_equal": a["loader_epoch"] == b["loader_epoch"],
+        "l2": dist,
+    }
+
+
+def phase_resume() -> dict:
+    import io
+    from unittest import mock
+
+    import torch
+
+    import run_experiment_torch
+    from turboprune_tpu_torch import driver
+    from turboprune_tpu_torch.config.compose import compose
+    from turboprune_tpu_torch.harness import PruningHarness
+    from turboprune_tpu_torch.ops import flash
+    from turboprune_tpu_torch.utils import config_fingerprint
+
+    counters = (flash.flash_fwd_cuda, flash.flash_bwd_dq_cuda, flash.flash_bwd_dkv_cuda)
+    t_phase = time.perf_counter()
+    rec: dict = {"save_ms": [], "harness": None}
+
+    class Recorded(PruningHarness):
+        """Times each slot save; keeps the harness for its end state."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            rec["harness"] = self
+            save = self.ckpts.save_mid_level
+
+            def timed_save(level, epoch, state, meta):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                save(level, epoch, state, meta)
+                rec["save_ms"].append((time.perf_counter() - t0) * 1e3)
+                self.after_save(level, epoch, state)
+
+            self.ckpts.save_mid_level = timed_save
+
+        def after_save(self, level, epoch, state):
+            pass
+
+    class Preempted(Recorded):
+        """Dies right after the level-1, epoch-0 slot save."""
+
+        def after_save(self, level, epoch, state):
+            if (level, epoch) == (1, 0):
+                rec["at_save"] = _train_snapshot(self)
+                rec["slot_bytes"] = (self.ckpts.mid_level_path() / "model.pt").stat().st_size
+                raw = io.BytesIO()  # the same tree, masks as raw bools
+                torch.save({**state.model_tree(), "optimizer": state.optimizer.state_dict(),
+                            "step": state.step, "tag": 0}, raw)
+                rec["raw_bytes"] = raw.getbuffer().nbytes
+                rec["mask_bytes"] = sum(m.numel() for m in state.masks.values())
+                raise KeyboardInterrupt("simulated preemption after the level-1, epoch-0 save")
+
+    class Resumed(Recorded):
+        def _enter_mid_level(self, level):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            entered = super()._enter_mid_level(level)
+            torch.cuda.synchronize()
+            rec["restore_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["entered"] = entered
+            rec["after_restore"] = _train_snapshot(self)
+            return entered
+
+    def main_with(harness_cls, base, extra=()):
+        with mock.patch.object(driver, "PruningHarness", harness_cls):
+            return run_experiment_torch.main(
+                ["--device", "cuda", "--config-name=cifar10_imp", *RESUME_OVERRIDES,
+                 f"experiment_params.base_dir={base}", *extra])
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as base:
+        ends, dirs = {}, {}
+        # ---- the main path, with every count at 0 just before it
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        for run in ("a", "a2"):
+            if main_with(Recorded, f"{base}/{run}") != 0:
+                raise AssertionError(f"uninterrupted run {run} failed")
+            ends[run] = _train_snapshot(rec["harness"])
+            (dirs[run],) = Path(f"{base}/{run}").iterdir()
+        save_ms = list(rec["save_ms"])
+        try:
+            main_with(Preempted, f"{base}/b")
+        except KeyboardInterrupt:
+            pass
+        else:
+            raise AssertionError("run b was not preempted")
+        (dirs["b"],) = Path(f"{base}/b").iterdir()
+        meta = rec["harness"].ckpts.peek_mid_level()
+        want_hash = config_fingerprint(compose("cifar10_imp", RESUME_OVERRIDES + [
+            f"experiment_params.base_dir={base}/b"]))
+        log(f"resume preempted run: slot header level {meta['level']} epoch {meta['epoch']}, "
+            f"config hash {meta['config_hash']} (config_fingerprint {want_hash}), loader "
+            f"epoch {meta['train_loader_epoch']}, {len(meta['level_rows'])} level row(s)")
+        if (meta["level"], meta["epoch"]) != (1, 0) or meta["config_hash"] != want_hash:
+            raise AssertionError(f"slot header {meta}")
+        rc = main_with(Resumed, f"{base}/b", [
+            "experiment_params.resume_experiment=true",
+            f"experiment_params.resume_experiment_stuff.resume_expt_name={dirs['b'].name}",
+            "experiment_params.resume_experiment_stuff.resume_level=1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        # ---- end of the main path
+        ends["r"] = _train_snapshot(rec["harness"])
+        log(f"resume: 4 runs of run_experiment_torch main (a, a', b preempted, b resumed) "
+            f"in {wall:.1f} s; resumed -> {rc}, re-entered level 1 at epoch "
+            f"{rec['entered'][0]}; K1/K2/K3 launches {launches} (the ResNet path runs none)")
+        if rc != 0 or rec["entered"][0] != 1 or any(launches.values()):
+            raise AssertionError("the resume did not re-enter level 1 at epoch 1")
+
+        restored = _snapshot_diff(rec["after_restore"], rec["at_save"])
+        log(f"resume restore against the state at the save: {restored}")
+        if restored["l2"] != 0.0 or not all(v for k, v in restored.items() if k != "l2"):
+            raise AssertionError("the restore is not the saved state bit for bit")
+
+        noise = _snapshot_diff(ends["a2"], ends["a"])
+        end = _snapshot_diff(ends["r"], ends["a"])
+        deterministic = noise["state_equal"]
+        log(f"resume end state, resumed b against uninterrupted a: {end}; a' against a "
+            f"(cuDNN's run-to-run noise): {noise}; "
+            + ("cuDNN's algorithms were deterministic run to run here" if deterministic else
+               "cuDNN's algorithms are NOT deterministic run to run here: the resumed run is "
+               "held within twice a' - a"))
+        if not (end["masks_equal"] and end["step_equal"] and end["loader_epoch_equal"]):
+            raise AssertionError("resumed masks, step or loader epoch differ from run a")
+        if not (end["state_equal"] or end["l2"] <= 2 * noise["l2"]):
+            raise AssertionError(f"resumed end state {end['l2']} from run a, noise {noise['l2']}")
+
+        for run in ("a", "b"):
+            rows = _read_csv(dirs[run] / "metrics" / "level_wise_metrics" / "level_1_metrics.csv")
+            epochs = [int(r["epoch"]) for r in rows]
+            left = [p.name for p in (dirs[run] / "checkpoints").iterdir()
+                    if p.name.startswith("mid_level")]
+            log(f"resume run {run}: level-1 CSV epochs {epochs}, mid-level files left {left}")
+            if epochs != [0, 1, 2] or left:
+                raise AssertionError(f"run {run}: epochs {epochs}, slot files {left}")
+        rows = _read_csv(dirs["a"] / "metrics" / "level_wise_metrics" / "level_0_metrics.csv")
+        epoch_s = statistics.median(float(r["epoch_seconds"]) for r in rows)
+        save = statistics.median(save_ms)
+        full_epoch_s = epoch_s / RESUME_EPOCH_STEPS * FULL_EPOCH_STEPS
+        log(f"resume slot: {rec['slot_bytes']} bytes on disk ({rec['mask_bytes']} mask bits "
+            f"packed to {sum((m.numel() + 7) // 8 for m in rec['at_save']['masks'].values())} "
+            f"bytes); the same tree with raw bool masks {rec['raw_bytes']} bytes; save "
+            f"{save:.1f} ms (median of {len(save_ms)} in runs a and a': device to host, "
+            f"torch.save, header), restore {rec['restore_ms']:.1f} ms (torch.load, "
+            f"load_state_dict, to the card); a save is {save / 1e3 / epoch_s * 100:.1f}% of "
+            f"this run's {RESUME_EPOCH_STEPS}-step epoch ({epoch_s:.3f} s, train only) and "
+            f"{save / 1e3 / full_epoch_s * 100:.2f}% of a {FULL_EPOCH_STEPS}-step epoch at its "
+            f"step rate ({full_epoch_s:.2f} s)")
+    log(f"resume phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"save_ms": save, "restore_ms": rec["restore_ms"], "slot_bytes": rec["slot_bytes"]}
+
+
+# ---------------------------------------------------------------- phase 7
+# The cyclic driver: DeiT-Small/16 @ 224 at its published width, flash
+# attention, batch 256, 4 cycles of 1 epoch a level (ct_constant_4), two
+# steps an epoch (so each cycle's lr shows its warm-up: 0.2 x lr, then lr),
+# 256 test images; the ladder [1.0, 0.8].
+CYCLIC_ARGS = [
+    "--config-name=imagenet_imp",
+    "cyclic_training=ct_constant_4",
+    "model_params=mp_deit_small",
+    "model_params.attention_impl=flash",
+    "dataset_params.dataloader_type=synthetic",
+    "dataset_params.total_batch_size=256",
+    "dataset_params.synthetic_num_train=1024",
+    "dataset_params.synthetic_num_test=256",
+    "experiment_params.epochs_per_level=4",
+    "experiment_params.max_steps_per_epoch=2",
+    "pruning_params.target_sparsity=0.2",
+]
+CYCLES = 4
+CYCLIC_STEPS = 2 * CYCLES * 2           # two levels, 2 steps a cycle
+
+
+def phase_cyclic() -> dict:
+    from unittest import mock
+
+    import torch
+
+    import run_cyclic_training_experiment_torch
+    from turboprune_tpu_torch import driver
+    from turboprune_tpu_torch.config.compose import compose
+    from turboprune_tpu_torch.harness import CyclicPruningHarness
+    from turboprune_tpu_torch.ops import flash, masking
+    from turboprune_tpu_torch.train import create_schedule
+    from turboprune_tpu_torch.utils import MODEL_INIT, ExperimentCheckpoints
+
+    counters = (flash.flash_fwd_cuda, flash.flash_bwd_dq_cuda, flash.flash_bwd_dkv_cuda)
+    rec: dict = {"cycles": [], "steps": 0, "evals": 0, "init_before_step": None}
+
+    class Recorded(CyclicPruningHarness):
+        """Records each cycle's budget and per-step lr, the eval batches,
+        and whether model_init was on disk at the first step."""
+
+        def setup_level(self, epochs):
+            super().setup_level(epochs)
+            cycle = {"epochs": epochs, "steps_per_epoch": self.steps_per_epoch, "lrs": []}
+            rec["cycles"].append(cycle)
+            step = self._train_step
+
+            def recorded(state, batch):
+                if rec["init_before_step"] is None:
+                    rec["init_before_step"] = self.ckpts.has_model(MODEL_INIT)
+                out = step(state, batch)
+                cycle["lrs"].append(state.optimizer.param_groups[0]["lr"])
+                rec["steps"] += 1
+                return out
+
+            self._train_step = recorded
+
+        def evaluate(self):
+            rec["evals"] += len(self.loaders.test_loader)
+            return super().evaluate()
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cyclic_") as base:
+        # ---- the main path, with every count at 0 just before it
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(driver, "CyclicPruningHarness", Recorded):
+            rc = run_cyclic_training_experiment_torch.main(
+                ["--device", "cuda", *CYCLIC_ARGS, f"experiment_params.base_dir={base}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        # ---- end of the main path
+        log(f"cyclic: run_cyclic_training_experiment_torch main -> {rc} in {wall:.1f} s; "
+            f"{rec['steps']} train steps, {rec['evals']} eval batches; launches {launches}")
+        if rc != 0:
+            raise AssertionError(f"cyclic main returned {rc}")
+        (expt,) = list(Path(base).iterdir())
+        op = compose("imagenet_imp", CYCLIC_ARGS[1:]).optimizer_params
+        # Level 0 builds one optimizer before its cycles, for the init saves.
+        cycles = rec["cycles"][1:]
+        bad_lr = []
+        for i, cycle in enumerate(cycles):
+            schedule = create_schedule(op.scheduler_type, base_lr=op.lr, epochs=cycle["epochs"],
+                                       steps_per_epoch=cycle["steps_per_epoch"],
+                                       warmup_fraction=op.warmup_fraction)
+            want = [schedule(s) for s in range(cycle["epochs"] * cycle["steps_per_epoch"])]
+            if cycle["lrs"] != want:
+                bad_lr.append((i, cycle["lrs"], want))
+        log(f"cyclic lr per cycle (level 0 then 1): "
+            + "; ".join(str(c["lrs"]) for c in cycles)
+            + f"; each equal to a fresh create_schedule from step 0: {not bad_lr}")
+        if len(cycles) != 2 * CYCLES or bad_lr or rec["cycles"][0]["lrs"]:
+            raise AssertionError(f"cycle learning rates {bad_lr or rec['cycles']}")
+        for level in (0, 1):
+            rows = _read_csv(expt / "metrics" / "level_wise_metrics" / f"level_{level}_metrics.csv")
+            got = sorted({int(r["cycle"]) for r in rows})
+            losses = [float(r[k]) for r in rows for k in ("train_loss", "test_loss")]
+            log(f"cyclic level {level}: cycles {got}, train_loss "
+                + ", ".join(f"{float(r['train_loss']):.4f}" for r in rows))
+            if got != list(range(CYCLES)) or not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"level {level}: cycles {got}, losses {losses}")
+        ckpts = ExperimentCheckpoints(expt)
+        level0, level1 = ckpts.load_level(0), ckpts.load_level(1)
+        d0, d1 = (masking.overall_density(level0["masks"]),
+                  masking.overall_density(level1["masks"]))
+        n = masking.num_prunable(level1["masks"])
+        log(f"cyclic densities {d0:.6f} / {d1:.6f} over {n}; model_init on disk before the "
+            f"first step: {rec['init_before_step']}")
+        if d0 != 1.0 or abs(d1 - 0.8) > 1.0 / n or not rec["init_before_step"]:
+            raise AssertionError("cyclic densities or the model_init save are wrong")
+        expect = {"flash_fwd_cuda": DEPTH * (rec["steps"] + rec["evals"]),
+                  "flash_bwd_dq_cuda": DEPTH * rec["steps"],
+                  "flash_bwd_dkv_cuda": DEPTH * rec["steps"]}
+        if rec["steps"] != CYCLIC_STEPS or launches != expect:
+            raise AssertionError(f"kernel launches {launches}, expected {expect}")
+    log(f"cyclic phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1546,17 +1887,21 @@ def main() -> int:
     slice_out = phase_slice()
     train_out = phase_train()
     phase_resnet()
+    phase_resume()
+    cyclic_out = phase_cyclic()
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s on {card}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_flash_ms")
-    # Launches on the main paths: K1 in every forward, served and trained;
-    # K2/K3 in every training backward.
-    k1_launches = slice_out["launches"] + train_out["launches"]["flash_fwd_cuda"]
+    # Launches on the main paths: K1 in every forward, served, trained and
+    # trained in cycles; K2/K3 in every training backward.
+    trained = {k: train_out["launches"][k] + cyclic_out["launches"][k]
+               for k in train_out["launches"]}
     rows = [
-        {**K1, "launches": k1_launches, **{k: timing[k] for k in keys}},
-        {**K2, "launches": train_out["launches"]["flash_bwd_dq_cuda"],
+        {**K1, "launches": slice_out["launches"] + trained["flash_fwd_cuda"],
+         **{k: timing[k] for k in keys}},
+        {**K2, "launches": trained["flash_bwd_dq_cuda"],
          **{k: bwd_timing["dq"][k] for k in keys}},
-        {**K3, "launches": train_out["launches"]["flash_bwd_dkv_cuda"],
+        {**K3, "launches": trained["flash_bwd_dkv_cuda"],
          **{k: bwd_timing["dkv"][k] for k in keys}},
     ]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -104,7 +104,7 @@ def test_cuda_is_the_default_and_raises_without_it(tmp_path):
 @pytest.mark.parametrize(
     "override",
     [
-        "experiment_params.checkpoint_every_epochs=1",
+        "model_params.use_compile=true",
         "experiment_params.compact_train=true",
         "dataset_params.dataloader_type=grain",
         "optimizer_params.optimizer_name=ScheduleFreeSGD",

@@ -1,6 +1,6 @@
 """The port stands alone: no module of turboprune_tpu_torch, nor
-chip_smoke.py, ablate_flash_fwd.py, run_server_torch.py or
-run_experiment_torch.py imports JAX, flax, optax, orbax or the JAX package
+chip_smoke.py, ablate_flash_fwd.py, run_server_torch.py,
+run_experiment_torch.py or run_cyclic_training_experiment_torch.py imports JAX, flax, optax, orbax or the JAX package
 (not even its jax-free modules). Checked on the AST, so a lazy import
 inside a function counts too."""
 
@@ -16,6 +16,7 @@ FILES = sorted((REPO / "turboprune_tpu_torch").rglob("*.py")) + [
     REPO / "ablate_flash_fwd.py",
     REPO / "run_server_torch.py",
     REPO / "run_experiment_torch.py",
+    REPO / "run_cyclic_training_experiment_torch.py",
 ]
 
 

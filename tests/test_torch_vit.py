@@ -4,6 +4,7 @@ its flash attention as tests/test_flash.py does (Pallas interpret mode on
 the CPU). fp32 logits agree within atol 1e-5: both sides compute in fp32
 and differ only in summation order."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +21,9 @@ from turboprune_tpu_torch.models import vit as tvit
 def test_logits_match_jax_flash(distilled):
     params = jax_params(distilled, seed=2)
     x = images(3, seed=2)
-    ref = np.asarray(jax_deit("flash", distilled).apply({"params": params}, x))
+    # One compiled program: the Pallas kernel in interpret mode runs op by
+    # op otherwise, ~4x slower on the CPU.
+    ref = np.asarray(jax.jit(jax_deit("flash", distilled).apply)({"params": params}, x))
     state, _ = bridge.params_from_flax(params)
     for impl in ("dense", "flash"):
         model = tvit.VisionTransformer(

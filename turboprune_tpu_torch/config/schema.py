@@ -197,9 +197,9 @@ class ModelConfig:
     # graftlint: disable=conf-dead-schema-field -- reference-parity: accepted+validated for config compatibility, structurally meaningless in the pytree-mask port
     mask_layer_type: str = "ConvMask"
     # Reference knob `use_compile` toggles torch.compile
-    # (standard_pruning_harness.py:141); jit is unconditional here, the knob is
-    # accepted for config compatibility and ignored.
-    # graftlint: disable=conf-dead-schema-field -- reference-parity: torch.compile toggle; jit is unconditional in the JAX port
+    # (standard_pruning_harness.py:141). The port's step is eager PyTorch:
+    # use_compile=true is refused (harness.pruning_harness.refuse_unported)
+    # until ROADMAP.md queue A, item 3 ports the compiled step.
     use_compile: bool = False
     # Local timm/DeiT torch checkpoint to warm-start ViT weights from
     # (reference deit.py:82-89 downloads these; no egress here, so the file

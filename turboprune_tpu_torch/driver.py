@@ -2,9 +2,10 @@
 one process.
 
 The driver owns the LEVEL loop (density ladder, prune between levels,
-rewind, level checkpoints); the harness owns the epoch loop. Multi-process
-runs (the JAX package's broadcast and cross-host agreement checks) and the
-cyclic harness are later slices (ROADMAP.md queue A, items 13 and 11).
+rewind, level checkpoints, resume at a level); the harness owns the epoch
+loop. ``run_cyclic`` is the same loop with the cyclic harness. Multi-process
+runs (the JAX package's broadcast and cross-host agreement checks) are a
+later slice (ROADMAP.md queue A, item 13).
 """
 
 from __future__ import annotations
@@ -15,10 +16,11 @@ import torch
 
 from .config.schema import MainConfig
 from .data.cifar import derived_generator
-from .harness import PruningHarness
+from .harness import CyclicPruningHarness, PruningHarness
 from .ops import masking
 from .pruning import DATA_DRIVEN_METHODS, generate_densities, prune_the_model
 from .utils import (
+    ExperimentCheckpoints,
     gen_expt_dir,
     model_state_dict,
     reset_weights,
@@ -87,16 +89,25 @@ def run(
     device = resolve_device(device)
     ep = cfg.experiment_params
     set_seed(ep.seed)
+    start_level = 0
     if ep.resume_experiment:
-        resume_experiment(cfg)
-    prefix, expt_dir = gen_expt_dir(cfg)
+        prefix, expt_dir, start_level = resume_experiment(cfg)
+        # A resumed level starts, as every level > 0 does, from the level
+        # below's checkpoint.
+        if start_level and not ExperimentCheckpoints(expt_dir).has_level(start_level - 1):
+            raise FileNotFoundError(
+                f"resume_level={start_level} needs checkpoint model_level_{start_level - 1}"
+            )
+    else:
+        prefix, expt_dir = gen_expt_dir(cfg)
     save_config(expt_dir, cfg)
     harness = harness_cls(cfg, (prefix, expt_dir), device=device)
 
     pp = cfg.pruning_params
     densities = generate_densities(pp.prune_method, pp.target_sparsity, pp.prune_rate)
     summaries = []
-    for level, density in enumerate(densities):
+    for level in range(start_level, len(densities)):
+        density = densities[level]
         if level == 0:
             if pp.training_type == "at_init":
                 # PaI: prune the untrained network before any training;
@@ -109,4 +120,14 @@ def run(
         harness.ckpts.save_level(level, harness.state.model_tree())
         summary["achieved_density"] = masking.overall_density(harness.state.masks)
         summaries.append(summary)
+    if ep.checkpoint_every_epochs:
+        # The run is complete: a slot left behind would be restored by a
+        # later resume of this dir at its level.
+        harness.ckpts.clear_mid_level()
     return expt_dir, summaries
+
+
+def run_cyclic(cfg: MainConfig, device: str | torch.device = "cuda"):
+    """``run`` with each level trained in ``cyclic_training.num_cycles``
+    cycles (``harness.CyclicPruningHarness``)."""
+    return run(cfg, device=device, harness_cls=CyclicPruningHarness)

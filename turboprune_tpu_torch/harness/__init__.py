@@ -1,6 +1,7 @@
-"""Training harness (port of ``turboprune_tpu/harness``). The cyclic
-harness is a later slice (ROADMAP.md queue A, item 11)."""
+"""Training harnesses (port of ``turboprune_tpu/harness``): the standard
+level loop and the cyclic one."""
 
+from .cyclic_harness import CyclicPruningHarness
 from .pruning_harness import PruningHarness
 
-__all__ = ["PruningHarness"]
+__all__ = ["CyclicPruningHarness", "PruningHarness"]

@@ -5,7 +5,9 @@ Builds the model (a DeiT or a CNN, ``models.create_model``), loaders,
 optimizer and checkpoints from the config on one device and owns a level's
 epoch loop: per-level fresh optimizer and schedule, the level-0
 ``model_init``/``optimizer_init`` saves, the rewind snapshot at
-``rewind_epoch``, per-epoch train and test passes, CSV rows. A CNN's
+``rewind_epoch``, per-epoch train and test passes, CSV rows, and the
+mid-level slot every ``checkpoint_every_epochs`` epochs, from which a
+preempted level re-enters at the next epoch. A CNN's
 BatchNorm running statistics live in the model's buffers: the train step
 moves them, the eval step reads them, and the model checkpoints carry
 them as ``batch_stats``.
@@ -16,12 +18,13 @@ the device until the epoch's end.
 Options of the JAX harness that later slices port raise here, naming the
 ROADMAP.md item: the sparse execution backends (``compact_train``,
 ``compact_eval``, ``nm_sparsity``), more than one device, the profiler
-trace, the mid-level checkpoint slot.
+trace, the compiled step (``use_compile``).
 """
 
 from __future__ import annotations
 
 import time
+from pathlib import Path
 
 import torch
 
@@ -46,7 +49,9 @@ from ..utils import (
     OPTIMIZER_REWIND,
     ExperimentCheckpoints,
     MetricsLogger,
+    config_fingerprint,
     display_training_info,
+    model_state_dict,
     resolve_device,
 )
 
@@ -67,9 +72,8 @@ def refuse_unported(cfg: MainConfig) -> None:
         "experiment_params.num_devices > 1": (ep.num_devices > 1, "item 13"),
         "experiment_params.model_parallelism > 1": (ep.model_parallelism > 1, "item 13"),
         "experiment_params.profile_dir": (bool(ep.profile_dir), "item 17"),
-        "experiment_params.checkpoint_every_epochs > 0": (
-            ep.checkpoint_every_epochs > 0, "item 6"),
         "model_params.pretrained_path": (bool(cfg.model_params.pretrained_path), "item 12"),
+        "model_params.use_compile": (cfg.model_params.use_compile, "item 3"),
     }
     for knob, (on, item) in unported.items():
         if on:
@@ -113,6 +117,10 @@ class PruningHarness:
         self.model = model.to(self.device)
         self.loaders = create_loaders(cfg, self.device)
         self.ckpts = ExperimentCheckpoints(self.expt_dir)
+        # The mid-level slot's identity: a slot stamped with another config
+        # is never restored.
+        self.config_hash = config_fingerprint(cfg)
+        self.run_id = Path(self.expt_dir).name
         self.metrics = MetricsLogger(self.expt_dir, self.prefix)
         self.steps_per_epoch = len(self.loaders.train_loader)
         if ep.max_steps_per_epoch:
@@ -196,20 +204,21 @@ class PruningHarness:
             self.ckpts.save_model(MODEL_INIT, self.state.model_tree())
             self.ckpts.save_optimizer(OPTIMIZER_INIT, self.state.optimizer)
 
-        rewind_epoch = self.cfg.pruning_params.rewind_epoch
-        max_test_acc = 0.0
-        for epoch in range(epochs_per_level):
+        ckpt_every = self.cfg.experiment_params.checkpoint_every_epochs
+        start_epoch, max_test_acc = self._enter_mid_level(level) if ckpt_every else (0, 0.0)
+        for epoch in range(start_epoch, epochs_per_level):
             row = {"level": level, "epoch": epoch}
-            row.update(self.train_epoch())
-            row.update(self.evaluate())
-            max_test_acc = max(max_test_acc, row["test_acc"])
-            row["max_test_acc"] = max_test_acc
-            row["sparsity"] = masking.overall_sparsity(self.state.masks)
-            self.metrics.log_epoch(row)
-            self._log_console(row)
-            if level == 0 and rewind_epoch is not None and epoch == rewind_epoch:
-                self.ckpts.save_model(MODEL_REWIND, self.state.model_tree())
-                self.ckpts.save_optimizer(OPTIMIZER_REWIND, self.state.optimizer)
+            max_test_acc = self._run_epoch(row, max_test_acc, snapshot_ok=level == 0)
+            # The level's last epoch is saved as model_level_{level}.
+            if ckpt_every and (epoch + 1) % ckpt_every == 0 and epoch + 1 < epochs_per_level:
+                self.ckpts.save_mid_level(level, epoch, self.state, meta={
+                    "max_test_acc": max_test_acc,
+                    "config_hash": self.config_hash,
+                    "run_id": self.run_id,
+                    "train_loader_epoch": getattr(self.loaders.train_loader, "epoch", 0),
+                    # Plain float and int rows: the level CSV survives.
+                    "level_rows": self.metrics.level_rows,
+                })
 
         return self.metrics.finish_level(
             level,
@@ -219,9 +228,90 @@ class PruningHarness:
             },
         )
 
-    def _log_console(self, row: dict) -> None:
+    def _run_epoch(self, row: dict, max_test_acc: float, snapshot_ok: bool) -> float:
+        """Train and evaluate one epoch, log ``row`` (which holds its level
+        and epoch) and, where ``snapshot_ok`` and the epoch is
+        ``rewind_epoch``, save the rewind snapshot. Returns the level's
+        best test accuracy so far."""
+        row.update(self.train_epoch())
+        row.update(self.evaluate())
+        max_test_acc = max(max_test_acc, row["test_acc"])
+        row["max_test_acc"] = max_test_acc
+        row["sparsity"] = masking.overall_sparsity(self.state.masks)
+        self.metrics.log_epoch(row)
+        self._log_console(row)
+        if snapshot_ok and row["epoch"] == self.cfg.pruning_params.rewind_epoch:
+            self.ckpts.save_model(MODEL_REWIND, self.state.model_tree())
+            self.ckpts.save_optimizer(OPTIMIZER_REWIND, self.state.optimizer)
+        return max_test_acc
+
+    def _enter_mid_level(self, level: int) -> tuple[int, float]:
+        """Restore the mid-level slot if it belongs to this level and
+        config; returns (first epoch to train, the level's best test
+        accuracy so far). A slot of another config or level, or a torn
+        one, is cleared and the level trains from epoch 0."""
+        mid = self.ckpts.peek_mid_level()
+        if mid is None:
+            return 0, 0.0
+        restored = None
+        if mid.get("config_hash") != self.config_hash:
+            print(
+                "[resume] REFUSING mid-level restore: slot config hash "
+                f"{mid.get('config_hash')!r} != current {self.config_hash!r} "
+                f"(run {mid.get('run_id')!r}) — the config changed since the "
+                "slot was written; replaying the level from its start",
+                flush=True,
+            )
+        elif mid["level"] == level:
+            restored = self.ckpts.load_mid_level(level, mid["epoch"])
+            if restored is None:
+                print(
+                    "[resume] mid-level slot is torn (header/state disagree) — "
+                    "replaying the level",
+                    flush=True,
+                )
+        if restored is None:
+            self.ckpts.clear_mid_level()
+            return 0, 0.0
+        self.state.model.load_state_dict(model_state_dict(restored))
+        self.state.masks = {p: m.to(self.device) for p, m in restored["masks"].items()}
+        self.state.optimizer.load_state_dict(restored["optimizer"])
+        self.state.step = int(restored["step"])
+        # The rows before the preemption, so the level CSV and its best
+        # test accuracy cover the whole level.
+        self.metrics.level_rows = [dict(r) for r in mid.get("level_rows", [])]
+        self._restore_train_stream(mid)
+        start_epoch = mid["epoch"] + 1
         print(
-            f"[L{row['level']:>2} E{row['epoch']:>3}] "
+            f"[resume] mid-level checkpoint: re-entering level {level} at "
+            f"epoch {start_epoch}",
+            flush=True,
+        )
+        return start_epoch, mid.get("max_test_acc", 0.0)
+
+    def _restore_train_stream(self, mid: dict) -> None:
+        """The train loader's data order at the slot. A loader whose epoch
+        counter is its whole state (augmentation and shuffle drawn from
+        (seed, epoch)) gets the counter back, which is exact; any other
+        takes a fresh pass, with a warning. (The stream-position loaders
+        of the JAX package are not ported yet: ROADMAP.md queue A, item
+        14.)"""
+        train_loader = self.loaders.train_loader
+        if hasattr(train_loader, "epoch"):
+            train_loader.epoch = mid["train_loader_epoch"]
+            return
+        print(
+            "[resume] WARNING: the resumed run sees a fresh shuffle pass — "
+            "statistically equivalent, NOT bit-identical to an "
+            "uninterrupted run",
+            flush=True,
+        )
+
+    def _log_console(self, row: dict) -> None:
+        # Rows of the cyclic harness carry their cycle.
+        cycle = f" C{row['cycle']}" if "cycle" in row else ""
+        print(
+            f"[L{row['level']:>2}{cycle} E{row['epoch']:>3}] "
             f"train {row['train_loss']:.4f}/{row['train_acc']:5.2f}% "
             f"test {row['test_loss']:.4f}/{row['test_acc']:5.2f}% "
             f"(best {row['max_test_acc']:5.2f}%) "

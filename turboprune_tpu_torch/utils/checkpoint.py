@@ -8,17 +8,24 @@ Layout under an experiment dir, as in the JAX package:
   artifacts/optimizer_init        optimizer state at level 0 start
   artifacts/optimizer_rewind      optimizer state at rewind_epoch
   checkpoints/model_level_{L}     end-of-level weights (next level's input)
+  checkpoints/mid_level           the full train state at an epoch inside a
+                                  level, and its header mid_level_meta.json
 
 A model checkpoint is the tree ``{"params": {name: parameter}, "masks":
 {flax path: bool tensor}, "batch_stats": {name: buffer}}`` (the BatchNorm
-running statistics are the buffers; ``model_state_dict`` joins the two); an optimizer checkpoint is the
-torch optimizer's ``state_dict``. The port's own format: each role is a
-directory holding ``model.pt`` or ``optimizer.pt`` written by ``torch.save``
-and read with ``weights_only=True`` (tensors and plain containers only,
-nothing unpickled that could run code). The JAX package's Orbax checkpoints
-are not read here; ``bridge.py`` converts weights between the two. The
-mid-level (epoch-granular) slot is a later slice (ROADMAP.md queue A,
-item 6).
+running statistics are the buffers; ``model_state_dict`` joins the two); an
+optimizer checkpoint is the torch optimizer's ``state_dict``. The port's
+own format: each role is a directory holding ``model.pt`` or
+``optimizer.pt`` written by ``torch.save`` and read with
+``weights_only=True`` (tensors and plain containers only, nothing
+unpickled that could run code). The JAX package's Orbax checkpoints are not
+read here; ``bridge.py`` converts weights between the two.
+
+On disk the masks are bit-packed, as in the JAX package: each mask becomes
+``{"bits": uint8[ceil(n/8)], "shape": int64[ndim]}`` under
+``masks_packed``, 8x smaller than one byte per weight. Checkpoints written
+with raw bool ``masks`` still load: the layout is read from the loaded
+tree's keys.
 
 Rewind (``reset_weights``): imp -> params and batch_stats from
 model_init, wr -> from model_rewind, lrr / at_init -> keep the trained
@@ -28,11 +35,15 @@ rewind.
 
 from __future__ import annotations
 
+import json
 import os
 import re
+import shutil
 import tempfile
 from pathlib import Path
+from typing import Optional
 
+import numpy as np
 import torch
 
 MODEL_FILE = "model.pt"
@@ -42,6 +53,10 @@ MODEL_INIT = "model_init"
 MODEL_REWIND = "model_rewind"
 OPTIMIZER_INIT = "optimizer_init"
 OPTIMIZER_REWIND = "optimizer_rewind"
+MID_LEVEL = "mid_level"
+
+MASKS_KEY = "masks"
+MASKS_PACKED_KEY = "masks_packed"
 
 _LEVEL_RE = re.compile(r"^model_level_(\d+)$")
 
@@ -81,14 +96,45 @@ def model_state_dict(tree: dict) -> dict:
     return {**tree["params"], **tree["batch_stats"]}
 
 
+def pack_mask_tree(masks: dict) -> dict:
+    """bool masks -> ``{"bits": uint8[ceil(n/8)], "shape": int64[ndim]}``
+    each, packed by ``np.packbits`` on the host (the JAX package's bytes)."""
+    out = {}
+    for path, m in masks.items():
+        arr = m.detach().cpu().numpy().astype(bool)
+        out[path] = {
+            "bits": torch.from_numpy(np.packbits(arr.reshape(-1))),
+            "shape": torch.tensor(arr.shape, dtype=torch.int64),
+        }
+    return out
+
+
+def unpack_mask_tree(packed: dict) -> dict:
+    """Inverse of ``pack_mask_tree``: bool tensors on the CPU."""
+    out = {}
+    for path, leaf in packed.items():
+        shape = tuple(int(s) for s in leaf["shape"])
+        n = int(np.prod(shape)) if shape else 1
+        bits = np.unpackbits(leaf["bits"].numpy(), count=n)
+        out[path] = torch.from_numpy(bits.astype(bool).reshape(shape))
+    return out
+
+
 def save_model_tree(path: str | Path, tree: dict) -> None:
-    """Write ``tree`` (dicts of tensors) as ``<path>/model.pt``."""
-    _save(Path(path), MODEL_FILE, tree)
+    """Write ``tree`` (dicts of tensors, with ``masks``) as
+    ``<path>/model.pt``, the masks bit-packed under ``masks_packed``."""
+    out = dict(tree)
+    out[MASKS_PACKED_KEY] = pack_mask_tree(out.pop(MASKS_KEY))
+    _save(Path(path), MODEL_FILE, out)
 
 
 def restore_model_tree(path: str | Path) -> dict:
-    """Read ``<path>/model.pt`` onto the CPU, tensors and containers only."""
-    return _restore(Path(path), MODEL_FILE)
+    """Read ``<path>/model.pt`` onto the CPU, tensors and containers only,
+    with the masks unpacked (or as written, in a raw-bool checkpoint)."""
+    tree = _restore(Path(path), MODEL_FILE)
+    if MASKS_PACKED_KEY in tree:
+        tree[MASKS_KEY] = unpack_mask_tree(tree.pop(MASKS_PACKED_KEY))
+    return tree
 
 
 class ExperimentCheckpoints:
@@ -119,6 +165,9 @@ class ExperimentCheckpoints:
     def has_model(self, role: str) -> bool:
         return (self.model_path(role) / MODEL_FILE).exists()
 
+    def has_level(self, level: int) -> bool:
+        return (self.level_path(level) / MODEL_FILE).exists()
+
     def save_level(self, level: int, tree: dict) -> None:
         save_model_tree(self.level_path(level), tree)
 
@@ -140,6 +189,67 @@ class ExperimentCheckpoints:
             if m:
                 out.append(int(m.group(1)))
         return sorted(out)
+
+    # --- the mid-level slot -----------------------------------------------
+    # One slot holds the full train state at the end of an epoch inside a
+    # level (params, batch_stats, masks, the optimizer's state, the step
+    # counter the schedule reads), and a small JSON header that is read
+    # without loading the state. A preempted level re-enters at the next
+    # epoch instead of replaying from its start.
+
+    def mid_level_path(self) -> Path:
+        return self.checkpoints_dir / MID_LEVEL
+
+    def _mid_level_meta_path(self) -> Path:
+        return self.checkpoints_dir / "mid_level_meta.json"
+
+    def save_mid_level(self, level: int, epoch: int, state, meta: dict) -> None:
+        """Write the slot for (level, epoch) from ``state`` (a
+        ``train.TrainState``), then its header {level, epoch, **meta}.
+        The (level, epoch) tag goes into both, the tree first: a preemption
+        between the two writes leaves them disagreeing, which
+        ``load_mid_level`` detects."""
+        tag = level * 1_000_000 + epoch
+        save_model_tree(
+            self.mid_level_path(),
+            {
+                **state.model_tree(),
+                "optimizer": state.optimizer.state_dict(),
+                "step": state.step,
+                "tag": tag,
+            },
+        )
+        p = self._mid_level_meta_path()
+        tmp = p.with_suffix(".tmp")
+        tmp.write_text(json.dumps({"level": level, "epoch": epoch, **meta}))
+        os.replace(tmp, p)
+
+    def peek_mid_level(self) -> Optional[dict]:
+        """The header, or None; loads no state. The header may be one save
+        older than the tree: ``load_mid_level`` decides."""
+        p = self._mid_level_meta_path()
+        if not p.exists() or not (self.mid_level_path() / MODEL_FILE).exists():
+            return None
+        try:
+            return json.loads(p.read_text())
+        except (ValueError, OSError):
+            return None
+
+    def load_mid_level(self, expect_level: int, expect_epoch: int) -> Optional[dict]:
+        """The slot's tree (params, masks, batch_stats, optimizer, step) on
+        the CPU, or None when its tag is not (expect_level, expect_epoch):
+        a torn save, after which the level is replayed from its start."""
+        restored = restore_model_tree(self.mid_level_path())
+        if int(restored.pop("tag")) != expect_level * 1_000_000 + expect_epoch:
+            return None
+        return restored
+
+    def clear_mid_level(self) -> None:
+        """Drop the slot. Levels run in ascending order, so a slot of
+        another level belongs to an abandoned trajectory."""
+        self._mid_level_meta_path().unlink(missing_ok=True)
+        if self.mid_level_path().exists():
+            shutil.rmtree(self.mid_level_path())
 
 
 def reset_weights(training_type: str, state, ckpts: ExperimentCheckpoints):

@@ -5,12 +5,16 @@ An experiment dir carries ``expt_config.yaml``, the composed config it was
 trained under; serving reads it back so a checkpoint is never paired with
 the wrong architecture. The metric channels are the reference's CSVs,
 written with the ``csv`` module (no pandas on the card's machine).
-Resuming an experiment is a later slice (ROADMAP.md queue A, item 6).
+``resume_experiment`` reopens an experiment dir at a level;
+``config_fingerprint`` stamps the mid-level slot with the config it was
+trained under (the same string as the JAX package's for the same config).
 """
 
 from __future__ import annotations
 
 import csv
+import hashlib
+import json
 import os
 import random
 import uuid
@@ -72,11 +76,38 @@ def gen_expt_dir(cfg: MainConfig) -> tuple[str, str]:
     return prefix, str(expt_dir)
 
 
-def resume_experiment(cfg: MainConfig):
-    raise NotImplementedError(
-        "resume_experiment is not yet ported to turboprune_tpu_torch "
-        "(ROADMAP.md queue A, item 6: the mid-level slot and resume)"
-    )
+def resume_experiment(cfg: MainConfig) -> tuple[str, str, int]:
+    """(prefix, expt_dir, resume_level) of the existing experiment dir
+    ``experiment_params.resume_experiment_stuff.resume_expt_name`` under
+    ``base_dir``; re-creates its subdirs. Training continues at
+    ``resume_level`` from ``model_level_{resume_level - 1}``."""
+    stuff = cfg.experiment_params.resume_experiment_stuff
+    if stuff is None or not stuff.resume_expt_name:
+        raise ValueError(
+            "resume_experiment=true requires "
+            "experiment_params.resume_experiment_stuff.resume_expt_name"
+        )
+    expt_dir = Path(cfg.experiment_params.base_dir) / stuff.resume_expt_name
+    if not expt_dir.exists():
+        raise FileNotFoundError(f"cannot resume: {expt_dir} does not exist")
+    for sub in SUBDIRS:
+        (expt_dir / sub).mkdir(parents=True, exist_ok=True)
+    prefix = stuff.resume_expt_name.split("__")[0]
+    return prefix, str(expt_dir), stuff.resume_level
+
+
+def config_fingerprint(cfg: MainConfig) -> str:
+    """16 hex digits of the sha256 of the training-relevant config (sorted
+    JSON of ``config_to_dict``). The resume knobs and the serve group are
+    left out: a resumed run flips ``resume_experiment`` and must still
+    match its own slot, and serving knobs do not touch training."""
+    d = config_to_dict(cfg)
+    ep = d.get("experiment_params") or {}
+    ep.pop("resume_experiment", None)
+    ep.pop("resume_experiment_stuff", None)
+    d.pop("serve", None)
+    blob = json.dumps(d, sort_keys=True, default=str).encode()
+    return hashlib.sha256(blob).hexdigest()[:16]
 
 
 def set_seed(seed: int) -> None:
