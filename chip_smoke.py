@@ -63,6 +63,19 @@ result line):
             fresh schedule from step 0, finite losses, densities 1.0 / 0.8,
             model_init saved before the first step, and K1/K2/K3 launched
             12 times per forward / backward.
+8. compile  model_params.use_compile=true (the masked forward, loss and
+            metric sums under torch.compile(fullgraph=True), inductor with
+            CUDA graphs; K1-K3 as torch.library custom ops inside them):
+            cifar10_imp as the resnet phase runs it, with its checks plus no
+            recompile at level 1, no CUDA-graph skip and no K1-K3 launch;
+            compile seconds, img/s, the step's time, device busy share and
+            time by kind beside the eager numbers; one bf16 step's gradient
+            against eager's (both against fp32) and one fp32 step beside the
+            CPU and float64; then the train phase's DeiT with flash,
+            compiled: K1/K2/K3 counted by the profiler (12 per forward /
+            backward over the run, and per replayed step), the step's time
+            and device work against eager, one bf16 step's gradient against
+            eager's.
 
 Prints the card (nvidia-smi name and power limit), a ``kernels`` JSON line,
 and as the last line ``{"ok": true, "device": {...}}``. Needs one CUDA card;
@@ -744,12 +757,15 @@ KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel
 
 
 def _device_busy_ms(
-    fn, reps: int = 3, inference: bool = True, top: int | None = 5
+    fn, reps: int = 3, inference: bool = True, top: int | None = 5,
+    counts: dict | None = None,
 ) -> tuple[float, dict, list]:
     """Sum of device kernel time per call of ``fn`` from torch.profiler,
     the part spent in each of the port's kernels (by name), and the ``top``
     kernels (all with None) that took the most device time as (name, ms
-    per call). Zeros when the profiler records no device activity."""
+    per call). Zeros when the profiler records no device activity. With
+    ``counts``, fills it with the launches of each of the port's kernels
+    over the ``reps`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -771,6 +787,8 @@ def _device_busy_ms(
             for name in KERNEL_NAMES:
                 if name in e.key:
                     ours[name] += t / reps / 1e3
+                    if counts is not None:
+                        counts[name] = counts.get(name, 0) + e.count
     ranked = sorted(by_kernel, key=lambda kv: -kv[1])[:top]
     return total / reps / 1e3, ours, ranked
 
@@ -895,36 +913,58 @@ def phase_slice() -> dict:
 
 
 # ---------------------------------------------------------------- phase 4
+def _mag_ladder(level0: dict, level1: dict, density: float = 0.8) -> tuple[bool, str]:
+    """Whether level 1's masks are exactly global magnitude's at ``density``
+    on level 0's checkpoint (``prune_mag``: keep the scores above the k-th
+    smallest, k = int((1 - density) N), so weights tied with the threshold
+    go too: the density is 0.8 to 1/N plus the ties), and a note of the
+    weights kept and the ties."""
+    import torch
+
+    from turboprune_tpu_torch.pruning.criteria import prune_mag
+
+    want = prune_mag(level0["params"], level0["masks"], density)
+    got = level1["masks"]
+    exact = want.keys() == got.keys() and all(
+        torch.equal(want[p].cpu(), got[p].cpu()) for p in want)
+    n = sum(m.numel() for m in got.values())
+    kept = sum(int(m.sum()) for m in got.values())
+    k = int((1 - density) * n)
+    return exact, (f"global magnitude's masks on level 0's weights exactly: {exact} ({kept} of "
+                   f"{n} kept; {n - k - kept} pruned past k = {k}, tied with the threshold)")
+
+
 def _read_csv(path: Path) -> list[dict]:
     with open(path, newline="") as f:
         return list(csv.DictReader(f))
 
 
-def _grads(model, masks, images, labels) -> dict:
+def _grads(model, masks, images, labels, forward=None) -> dict:
     """Parameter gradients of one train step's loss (the masked forward,
-    summed fp32 cross entropy over the batch size), by autograd."""
+    summed fp32 cross entropy over the batch size), by autograd through
+    ``forward``: ``train_forward`` eagerly, or its compiled version."""
     import torch
 
-    from turboprune_tpu_torch.train import cross_entropy_sum, masked_forward
+    from turboprune_tpu_torch.train import train_forward
 
     model.train()
     params = dict(model.named_parameters())
-    loss = cross_entropy_sum(masked_forward(model, masks, images), labels) / labels.shape[0]
-    return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    loss = (forward or train_forward)(model, masks, images, labels)["loss"]
+    # Copies: a compiled step's gradients live in its CUDA-graph memory.
+    return {n: g.clone() for n, g in zip(params, torch.autograd.grad(loss, list(params.values())))}
 
 
 @contextlib.contextmanager
 def _flash_backward(variant: str):
-    """Swap FlashAttention's backward, for the bf16 gradient diagnosis only
-    (after the counted main path): "fp32_o" runs K2/K3 with drow from the
-    unrounded attention output (softmax(s) v in fp32, from the same bf16
-    q, k, v) instead of the bf16 o; "plain" runs flash_backward_plain, the
-    TPU recurrence in torch ops, on the same bf16 o and lse."""
+    """Swap the flash_fwd op's registered backward, for the bf16 gradient
+    diagnosis only (after the counted main path): "fp32_o" runs K2/K3 with
+    drow from the unrounded attention output (softmax(s) v in fp32, from
+    the same bf16 q, k, v) instead of the bf16 o; "plain" runs
+    flash_backward_plain, the TPU recurrence in torch ops, on the same bf16
+    o and lse."""
     from turboprune_tpu_torch.ops import flash
 
-    original = flash.FlashAttention.__dict__["backward"]
-
-    def backward(ctx, do):
+    def backward(ctx, do, _dlse):
         q, k, v, kv_valid, o, lse = ctx.saved_tensors
         if variant == "plain":
             dq, dk, dv = flash.flash_backward_plain(
@@ -937,16 +977,23 @@ def _flash_backward(variant: str):
             dk, dv = flash.flash_bwd_dkv_cuda(q, k, v, kv_valid, do, lse, drow, ctx.scale)
         return dq, dk, dv, None, None, None, None
 
-    flash.FlashAttention.backward = staticmethod(backward)
+    flash.flash_fwd.register_autograd(backward, setup_context=flash._flash_fwd_setup)
     try:
         yield
     finally:
-        flash.FlashAttention.backward = original
+        flash.flash_fwd.register_autograd(flash._flash_fwd_backward,
+                                          setup_context=flash._flash_fwd_setup)
 
 
 def _rel(a: dict, b: dict) -> dict:
     """Per tensor ||a - b|| / ||b||."""
     return {n: ((a[n] - b[n]).norm() / b[n].norm()).item() for n in b}
+
+
+def _whole_rel(g: dict, ref: dict) -> float:
+    """||G - G_ref|| / ||G_ref|| over all parameters."""
+    num = math.sqrt(sum((g[n].float() - ref[n].float()).norm().item() ** 2 for n in ref))
+    return num / math.sqrt(sum(ref[n].float().norm().item() ** 2 for n in ref))
 
 
 def _check_fp32_grads(flash: dict, dense: dict) -> None:
@@ -969,11 +1016,7 @@ def _check_bf16_grads(flash: dict, dense: dict, ref: dict, batch: int) -> None:
     rel_f, rel_d, rel_fd = _rel(flash, ref), _rel(dense, ref), _rel(flash, dense)
     med_f, med_d = statistics.median(rel_f.values()), statistics.median(rel_d.values())
 
-    def whole(g):  # ||G - G_fp32|| over all parameters
-        return math.sqrt(sum((g[n].float() - ref[n]).norm().item() ** 2 for n in ref))
-
-    ref_norm = math.sqrt(sum(ref[n].norm().item() ** 2 for n in ref))
-    all_f, all_d = whole(flash) / ref_norm, whole(dense) / ref_norm
+    all_f, all_d = _whole_rel(flash, ref), _whole_rel(dense, ref)
     limit = GRAD_BF16_FACTOR * all_d + GRAD_BF16_FLOOR
     key_bias = [n for n in ref if n.endswith("attn.key.bias")]
     worst = sorted((n for n in rel_f if n not in key_bias), key=rel_f.get)[-3:][::-1]
@@ -1012,11 +1055,10 @@ def _check_bf16_cause(variants: dict, ref: dict) -> None:
     the drow-from-the-unrounded-o gradient to the per-tensor limits and
     flash_backward_plain's gradient to K2/K3's."""
     key_bias = [n for n in ref if n.endswith("attn.key.bias")]
-    ref_norm = math.sqrt(sum(ref[n].norm().item() ** 2 for n in ref))
     rel, kb, worst = {}, {}, {}
     for label, g in variants.items():
         rel[label] = _rel(g, ref)
-        whole = math.sqrt(sum((g[n] - ref[n]).norm().item() ** 2 for n in ref)) / ref_norm
+        whole = _whole_rel(g, ref)
         worst[label] = max((n for n in rel[label] if n not in key_bias), key=rel[label].get)
         kb[label] = max((g[n].norm() / g[n.replace(".key.", ".query.")].norm()).item()
                         for n in key_bias)
@@ -1096,9 +1138,10 @@ def phase_train() -> dict:
         n = masking.num_prunable(level1["masks"])
         monotone = all(bool((level1["masks"][p] <= level0["masks"][p]).all())
                        for p in level0["masks"])
+        exact, ladder = _mag_ladder(level0, level1)
         log(f"train: level densities {d0:.6f} / {d1:.6f} over {n} prunable weights; "
-            f"masks monotone {monotone}")
-        if d0 != 1.0 or abs(d1 - 0.8) > 1.0 / n or not monotone:
+            f"masks monotone {monotone}; {ladder}")
+        if d0 != 1.0 or not exact or not monotone:
             raise AssertionError("level densities or masks are wrong")
         expect = {"flash_fwd_cuda": DEPTH * (TRAIN_STEPS + EVAL_BATCHES),
                   "flash_bwd_dq_cuda": DEPTH * TRAIN_STEPS,
@@ -1202,6 +1245,12 @@ RESNET_STEPS = 50000 // RESNET_BATCH     # 97 steps per level
 # on the CPU: within 1e-3 of its norm plus twice the CPU fp32 gradient's
 # own distance (the card as exact as the CPU); the whole gradient, card
 # against CPU, within 1e-3 of its norm. A wrong layer moves them by O(1).
+# The compiled step (inductor) is a third fp32 implementation of the same
+# sums, in its own order: the same limits, each tensor's noise taken as
+# the larger of the CPU's and the eager card's distance from float64 (the
+# compiled step as exact as eager fp32 on either device). With the masks
+# of a compiled run's level 1, layer3_0.BatchNorm_0.bias lay 1.79e-3 from
+# float64 eager on an H100, 1.90e-3 compiled there, 4.7e-4 on the CPU.
 CARD_CPU_BATCH = 32
 CARD_CPU_REL = 1e-4
 CARD_CPU_GRAD = 1e-3
@@ -1217,14 +1266,22 @@ SERVE_RTOL = 2.0 ** -7
 
 class _Recorder:
     """Records, from inside the driver's run, each level's starting
-    parameters and statistics, and that every evaluation ran in eval mode
-    and left the running statistics as they were."""
+    parameters and statistics, that every evaluation ran in eval mode and
+    left the running statistics as they were, dynamo's graph count at the
+    end of each level, and the wall time of the first train step and of
+    each evaluation (a compiled run compiles in its first of each)."""
 
     def __init__(self):
         self.starts = {}
         self.evals = []
+        self.graphs = {}
+        self.first_step_s = None
+        self.eval_s = []
 
     def harness_cls(self):
+        import torch
+        from torch._dynamo.utils import counters
+
         from turboprune_tpu_torch.harness import PruningHarness
 
         recorder = self
@@ -1234,11 +1291,30 @@ class _Recorder:
                 recorder.starts[level] = {
                     k: v.detach().cpu().clone()
                     for k, v in self.state.model.state_dict().items()}
-                return super().train_one_level(epochs_per_level, level)
+                out = super().train_one_level(epochs_per_level, level)
+                recorder.graphs[level] = counters["stats"]["unique_graphs"]
+                return out
+
+            def setup_level(self, epochs):
+                super().setup_level(epochs)
+                step = self._train_step
+
+                def timed(state, batch):
+                    if recorder.first_step_s is not None:
+                        return step(state, batch)
+                    t0 = time.perf_counter()
+                    out = step(state, batch)
+                    torch.cuda.synchronize()
+                    recorder.first_step_s = time.perf_counter() - t0
+                    return out
+
+                self._train_step = timed
 
             def evaluate(self):
                 before = [b.clone() for b in self.state.model.buffers()]
+                t0 = time.perf_counter()
                 out = super().evaluate()
+                recorder.eval_s.append(time.perf_counter() - t0)
                 same = all(bool((a == b).all())
                            for a, b in zip(before, self.state.model.buffers()))
                 recorder.evals.append((not self.state.model.training, same))
@@ -1296,8 +1372,13 @@ def _resnet_macs(model, image: int) -> int:
 
 def _kernel_kind(name: str) -> str:
     """convolution (cuDNN's kernels), reduction, elementwise or other, by
-    the kernel's name."""
+    the kernel's name; inductor's Triton kernels by their prefix (pointwise,
+    or a reduction, looped or persistent), before their fused op names."""
     low = name.lower()
+    if low.startswith("triton_poi"):
+        return "elementwise"
+    if low.startswith(("triton_red", "triton_per")):
+        return "reduction"
     if any(k in low for k in ("fprop", "dgrad", "wgrad", "conv", "xmma", "cutlass",
                               "implicit", "gemm", "cudnn")):
         return "convolution"
@@ -1308,11 +1389,13 @@ def _kernel_kind(name: str) -> str:
     return "other"
 
 
-def _card_vs_cpu(masks: dict) -> None:
+def _card_vs_cpu(masks: dict, compiled: bool = False) -> None:
     """One fp32 train step's logits, updated running statistics and
     gradients of the full ResNet-18 at batch 32, on the card and on the
     CPU, from the same weights (seed), masks and batch; TF32 off; the
-    float64 gradient on the CPU as the reference."""
+    float64 gradient on the CPU as the reference. With ``compiled``, the
+    card also runs the compiled step (inductor, CUDA graphs), held to the
+    same limits, and against the eager card step."""
     import copy
 
     import torch
@@ -1320,7 +1403,7 @@ def _card_vs_cpu(masks: dict) -> None:
     from turboprune_tpu_torch.data.augment import CIFAR10_MEAN, CIFAR10_STD, normalize_uint8
     from turboprune_tpu_torch.data.synthetic import synthetic_arrays
     from turboprune_tpu_torch.models import create_model
-    from turboprune_tpu_torch.train import cross_entropy_sum, masked_forward
+    from turboprune_tpu_torch.train import compile_forward, mark_buffers_static, train_forward
 
     x, y = synthetic_arrays(CARD_CPU_BATCH, 32, 10, seed=11)
     images = normalize_uint8(torch.from_numpy(x), CIFAR10_MEAN, CIFAR10_STD)
@@ -1333,55 +1416,130 @@ def _card_vs_cpu(masks: dict) -> None:
     # The head casts its input to fp32; in float64 it takes the float64 pool.
     exact.fc.forward = lambda z, fc=exact.fc: torch.nn.functional.linear(
         z.double(), fc.weight, fc.bias)
-    runs = (("cpu", cpu, torch.float32), ("cuda", copy.deepcopy(cpu).cuda(), torch.float32),
-            ("float64", exact, torch.float64))
+    runs = [("cpu", cpu, "cpu", torch.float32, train_forward),
+            ("cuda", copy.deepcopy(cpu).cuda(), "cuda", torch.float32, train_forward)]
+    if compiled:
+        model = copy.deepcopy(cpu).cuda()
+        mark_buffers_static(model)
+        runs.append(("cuda compiled", model, "cuda", torch.float32,
+                     compile_forward(train_forward, torch.device("cuda"))))
+    runs.append(("float64", exact, "cpu", torch.float64, train_forward))
     out = {}
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for name, model, dtype in runs:
-            dev = "cuda" if name == "cuda" else "cpu"
+        for name, model, dev, dtype, forward in runs:
             model.train()
             params = dict(model.named_parameters())
-            logits = masked_forward(model, {p: v.to(dev) for p, v in masks.items()},
-                                    images.to(dev, dtype))
-            loss = cross_entropy_sum(logits, labels.to(dev)) / CARD_CPU_BATCH
-            grads = torch.autograd.grad(loss, list(params.values()))
-            out[name] = (logits.detach().cpu().double(),
+            res = forward(model, {p: v.to(dev) for p, v in masks.items()},
+                          images.to(dev, dtype), labels.to(dev))
+            grads = torch.autograd.grad(res["loss"], list(params.values()))
+            out[name] = (res["logits"].cpu().double(),
                          {k: v.cpu().double() for k, v in model.named_buffers()},
                          {k: g.cpu().double() for k, g in zip(params, grads)})
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    (lc, bc, gc), (lg, bg, gg), (_, _, g64) = out["cpu"], out["cuda"], out["float64"]
-    logit_err = float((lg - lc).abs().max() / lc.abs().max())
-    stat_err = max(float((bg[k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
-                   for k, v in bc.items())
+    (lc, bc, gc), (_, _, g64) = out["cpu"], out["float64"]
 
     def dist(a, b):
         return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
-    card_cpu = {k: dist(gg[k], g) for k, g in gc.items()}
-    whole = dist(torch.cat([g.reshape(-1) for g in gg.values()]),
-                 torch.cat([g.reshape(-1) for g in gc.values()]))
-    card64 = {k: dist(gg[k], g) for k, g in g64.items()}
+    def flat(g):
+        return torch.cat([v.reshape(-1) for v in g.values()])
+
     cpu64 = {k: dist(gc[k], g) for k, g in g64.items()}
-    excess = {k: card64[k] - (CARD_CPU_GRAD + 2 * cpu64[k]) for k in g64}
-    worst = max(card_cpu, key=card_cpu.get)
-    tight = max(excess, key=excess.get)
-    log(f"resnet card vs cpu: one fp32 train step of ResNet-18 (full width) at batch "
-        f"{CARD_CPU_BATCH}, TF32 off for this check (cudnn.allow_tf32 and "
-        "cuda.matmul.allow_tf32 False; PyTorch's cuDNN default is on): logits "
-        f"{logit_err:.3e} of their largest (limit {CARD_CPU_REL}), running statistics "
-        f"{stat_err:.3e} (limit {CARD_CPU_REL}); gradients card vs cpu: whole {whole:.3e} of "
-        f"its norm (limit {CARD_CPU_GRAD}), per tensor median "
-        f"{statistics.median(card_cpu.values()):.3e}, worst {card_cpu[worst]:.3e} at {worst}; "
-        f"from the float64 gradient: card median {statistics.median(card64.values()):.3e}, "
-        f"cpu fp32 median {statistics.median(cpu64.values()):.3e}; closest to the per-tensor "
-        f"limit (1e-3 + 2 x cpu's): {tight} card {card64[tight]:.3e}, cpu {cpu64[tight]:.3e}")
-    if (logit_err > CARD_CPU_REL or stat_err > CARD_CPU_REL or whole > CARD_CPU_GRAD
-            or excess[tight] > 0):
-        raise AssertionError("the card's fp32 ResNet step disagrees with the CPU's")
+    eager64 = {k: dist(out["cuda"][2][k], g) for k, g in g64.items()}
+    failed = []
+    # Each route with the noise it is held to. The compile phase holds the
+    # compiled step only: the eager card is held in the resnet phase, on
+    # masks that are the same in every run (a compiled run's are not: its
+    # training is not deterministic run to run).
+    routes = {"cuda": cpu64}
+    if compiled:
+        routes = {"cuda compiled": {k: max(cpu64[k], eager64[k]) for k in g64}}
+    for route, noise in routes.items():
+        lg, bg, gg = out[route]
+        logit_err = float((lg - lc).abs().max() / lc.abs().max())
+        stat_err = max(float((bg[k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+                       for k, v in bc.items())
+        card_cpu = {k: dist(gg[k], g) for k, g in gc.items()}
+        whole = dist(flat(gg), flat(gc))
+        card64 = {k: dist(gg[k], g) for k, g in g64.items()}
+        excess = {k: card64[k] - (CARD_CPU_GRAD + 2 * noise[k]) for k in g64}
+        worst = max(card_cpu, key=card_cpu.get)
+        tight = max(excess, key=excess.get)
+        log(f"resnet {route} vs cpu: one fp32 train step of ResNet-18 (full width) at batch "
+            f"{CARD_CPU_BATCH}, TF32 off for this check (cudnn.allow_tf32 and "
+            "cuda.matmul.allow_tf32 False; PyTorch's cuDNN default is on): logits "
+            f"{logit_err:.3e} of their largest (limit {CARD_CPU_REL}), running statistics "
+            f"{stat_err:.3e} (limit {CARD_CPU_REL}); gradients {route} vs cpu: whole "
+            f"{whole:.3e} of its norm (limit {CARD_CPU_GRAD}), per tensor median "
+            f"{statistics.median(card_cpu.values()):.3e}, worst {card_cpu[worst]:.3e} at {worst}; "
+            f"from the float64 gradient: {route} median {statistics.median(card64.values()):.3e}, "
+            f"cpu fp32 median {statistics.median(cpu64.values()):.3e}; closest to the per-tensor "
+            f"limit (1e-3 + 2 x {'cpu' if route == 'cuda' else 'max(cpu, eager card)'}'s): "
+            f"{tight} {route} {card64[tight]:.3e}, cpu {cpu64[tight]:.3e}, eager card "
+            f"{eager64[tight]:.3e}")
+        if (logit_err > CARD_CPU_REL or stat_err > CARD_CPU_REL or whole > CARD_CPU_GRAD
+                or excess[tight] > 0):
+            failed.append(route)
+    if compiled:
+        (le, _, ge), (lk, _, gk) = out["cuda"], out["cuda compiled"]
+        logit_err = float((lk - le).abs().max() / le.abs().max())
+        whole = dist(flat(gk), flat(ge))
+        log(f"resnet compiled vs eager (card, fp32, batch {CARD_CPU_BATCH}): logits "
+            f"{logit_err:.3e} of their largest (limit {CARD_CPU_REL}), whole gradient "
+            f"{whole:.3e} of its norm (limit {2 * CARD_CPU_GRAD:g}: each within "
+            f"{CARD_CPU_GRAD:g} of the cpu's)")
+        if logit_err > CARD_CPU_REL or whole > 2 * CARD_CPU_GRAD:
+            failed.append("compiled vs eager")
+    if failed:
+        raise AssertionError(f"the card's fp32 ResNet step disagrees with the CPU's: {failed}")
+
+
+def _check_imp_run(tag: str, expt: Path, recorder: _Recorder) -> tuple[list, dict]:
+    """The checks of a two-level cifar10_imp run: finite losses, densities
+    1.0 / 0.8 to 1/N, monotone masks, level 1 starting from model_init in
+    params and batch_stats bit for bit, and two evaluations in eval mode
+    that left the running statistics untouched. Returns (CSV rows, the
+    level-1 checkpoint)."""
+    import torch
+
+    from turboprune_tpu_torch.ops import masking
+    from turboprune_tpu_torch.utils import ExperimentCheckpoints, model_state_dict
+
+    rows = [r for lvl in (0, 1) for r in _read_csv(
+        expt / "metrics" / "level_wise_metrics" / f"level_{lvl}_metrics.csv")]
+    for r in rows:
+        log(f"{tag} level {r['level']}: train_loss {float(r['train_loss']):.4f} "
+            f"test_loss {float(r['test_loss']):.4f} test_acc {float(r['test_acc']):.2f}% "
+            f"{float(r['samples_per_sec']):.1f} img/s over the epoch "
+            f"({RESNET_STEPS} steps, {float(r['epoch_seconds']):.2f} s)")
+    losses = [float(r[k]) for r in rows for k in ("train_loss", "test_loss")]
+    if len(rows) != 2 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"expected two levels of finite losses, got {losses}")
+    ckpts = ExperimentCheckpoints(expt)
+    init, level0, level1 = (ckpts.load_model("model_init"), ckpts.load_level(0),
+                            ckpts.load_level(1))
+    d0, d1 = (masking.overall_density(level0["masks"]),
+              masking.overall_density(level1["masks"]))
+    n = masking.num_prunable(level1["masks"])
+    monotone = all(bool((level1["masks"][p] <= level0["masks"][p]).all())
+                   for p in level0["masks"])
+    start = recorder.starts[1]
+    rewound = {k: bool(torch.equal(start[k], v)) for k, v in model_state_dict(init).items()}
+    stats = [k for k in init["batch_stats"]]
+    exact, ladder = _mag_ladder(level0, level1)
+    log(f"{tag}: densities {d0:.6f} / {d1:.6f} over {n} prunable weights (ladder "
+        f"1.0 / 0.8; {ladder}); masks monotone {monotone}; level 1 starts from model_init "
+        f"bit for bit: {sum(rewound[k] for k in init['params'])}/{len(init['params'])} "
+        f"params, {sum(rewound[k] for k in stats)}/{len(stats)} batch_stats; "
+        f"evaluations in eval mode, running statistics untouched: {recorder.evals}")
+    if (d0 != 1.0 or not exact or not monotone or not all(rewound.values())
+            or len(recorder.evals) != 2 or not all(a and b for a, b in recorder.evals)):
+        raise AssertionError(f"{tag}: IMP densities, masks, rewind or eval mode are wrong")
+    return rows, level1
 
 
 def phase_resnet() -> dict:
@@ -1404,43 +1562,15 @@ def phase_resnet() -> dict:
                                         f"experiment_params.base_dir={base}/imp"]
         for c in counters:
             c.launches = 0
-        rc, expt, wall = _run_config("cifar10_imp", overrides, recorder)
+        rc, expt, imp_wall = _run_config("cifar10_imp", overrides, recorder)
         launches = {c.__name__: c.launches for c in counters}
         # ---- end of the main path
         log(f"resnet imp: run_experiment_torch main --config-name=cifar10_imp -> {rc} in "
-            f"{wall:.1f} s (data generation, init, checkpoints included); K1/K2/K3 "
+            f"{imp_wall:.1f} s (data generation, init, checkpoints included); K1/K2/K3 "
             f"launches {launches} (the ResNet path runs none of them)")
         if rc != 0 or any(launches.values()):
             raise AssertionError(f"cifar10_imp returned {rc}, launches {launches}")
-        rows = [r for lvl in (0, 1) for r in _read_csv(
-            expt / "metrics" / "level_wise_metrics" / f"level_{lvl}_metrics.csv")]
-        for r in rows:
-            log(f"resnet imp level {r['level']}: train_loss {float(r['train_loss']):.4f} "
-                f"test_loss {float(r['test_loss']):.4f} test_acc {float(r['test_acc']):.2f}% "
-                f"{float(r['samples_per_sec']):.1f} img/s over the epoch "
-                f"({RESNET_STEPS} steps, {float(r['epoch_seconds']):.2f} s)")
-        losses = [float(r[k]) for r in rows for k in ("train_loss", "test_loss")]
-        if len(rows) != 2 or not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"expected two levels of finite losses, got {losses}")
-        ckpts = ExperimentCheckpoints(expt)
-        init, level0, level1 = (ckpts.load_model("model_init"), ckpts.load_level(0),
-                                ckpts.load_level(1))
-        d0, d1 = (masking.overall_density(level0["masks"]),
-                  masking.overall_density(level1["masks"]))
-        n = masking.num_prunable(level1["masks"])
-        monotone = all(bool((level1["masks"][p] <= level0["masks"][p]).all())
-                       for p in level0["masks"])
-        start = recorder.starts[1]
-        rewound = {k: bool(torch.equal(start[k], v)) for k, v in model_state_dict(init).items()}
-        stats = [k for k in init["batch_stats"]]
-        log(f"resnet imp: densities {d0:.6f} / {d1:.6f} over {n} prunable weights (ladder "
-            f"1.0 / 0.8, to 1/N); masks monotone {monotone}; level 1 starts from model_init "
-            f"bit for bit: {sum(rewound[k] for k in init['params'])}/{len(init['params'])} "
-            f"params, {sum(rewound[k] for k in stats)}/{len(stats)} batch_stats; "
-            f"evaluations in eval mode, running statistics untouched: {recorder.evals}")
-        if (d0 != 1.0 or abs(d1 - 0.8) > 1.0 / n or not monotone or not all(rewound.values())
-                or len(recorder.evals) != 2 or not all(a and b for a, b in recorder.evals)):
-            raise AssertionError("IMP densities, masks, rewind or eval mode are wrong")
+        rows, level1 = _check_imp_run("resnet imp", expt, recorder)
 
         # ---- prune at init: ER-ERK and SNIP, one level at density 0.1
         for name in ("cifar10_er_erk", "cifar10_er_snip"):
@@ -1493,11 +1623,7 @@ def phase_resnet() -> dict:
         step_ms = _call_ms(step, reps=5, warmup=2)
         busy_ms, _, kernels = _device_busy_ms(step, reps=3, inference=False, top=None)
         top = kernels[:5]
-        kinds: dict = {}
-        for name, ms in kernels:
-            kind = kinds.setdefault(_kernel_kind(name), [0.0, 0])
-            kind[0] += ms
-            kind[1] += 1
+        kinds = _kinds(kernels)
         macs = _resnet_macs(harness.state.model, 32)
         flops = 3 * 2 * macs * RESNET_BATCH
         bound_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
@@ -1513,9 +1639,7 @@ def phase_resnet() -> dict:
         if top:
             log("resnet train step top device kernels (ms per step): "
                 + "; ".join(f"{name} {ms:.3f}" for name, ms in top))
-            log("resnet train step device time by kind (ms per step): "
-                + "; ".join(f"{k} {ms:.3f} ({n} kernel names)"
-                            for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+            log(f"resnet train step device time by kind (ms per step): {_kinds_line(kinds)}")
 
         # ---- serve the trained level 1 and hold it against the eval forward
         engine = InferenceEngine.from_experiment(expt, level=1, buckets=(SERVE_BUCKET,),
@@ -1541,7 +1665,8 @@ def phase_resnet() -> dict:
         if engine.model.training or err > limit:
             raise AssertionError("served ResNet disagrees with the eval forward")
     log(f"resnet phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"step_ms": step_ms, "busy_ms": busy_ms}
+    return {"step_ms": step_ms, "busy_ms": busy_ms, "kinds": kinds, "wall_s": imp_wall,
+            "img_s": [float(r["samples_per_sec"]) for r in rows]}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1856,9 +1981,10 @@ def phase_cyclic() -> dict:
         d0, d1 = (masking.overall_density(level0["masks"]),
                   masking.overall_density(level1["masks"]))
         n = masking.num_prunable(level1["masks"])
-        log(f"cyclic densities {d0:.6f} / {d1:.6f} over {n}; model_init on disk before the "
-            f"first step: {rec['init_before_step']}")
-        if d0 != 1.0 or abs(d1 - 0.8) > 1.0 / n or not rec["init_before_step"]:
+        exact, ladder = _mag_ladder(level0, level1)
+        log(f"cyclic densities {d0:.6f} / {d1:.6f} over {n} ({ladder}); model_init on disk "
+            f"before the first step: {rec['init_before_step']}")
+        if d0 != 1.0 or not exact or not rec["init_before_step"]:
             raise AssertionError("cyclic densities or the model_init save are wrong")
         expect = {"flash_fwd_cuda": DEPTH * (rec["steps"] + rec["evals"]),
                   "flash_bwd_dq_cuda": DEPTH * rec["steps"],
@@ -1867,6 +1993,280 @@ def phase_cyclic() -> dict:
             raise AssertionError(f"kernel launches {launches}, expected {expect}")
     log(f"cyclic phase: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches}
+
+
+# ---------------------------------------------------------------- phase 8
+# The compiled step (model_params.use_compile=true): the masked forward, the
+# loss and the metric sums under torch.compile(fullgraph=True), inductor with
+# CUDA graphs, the backward from AOTAutograd, the optimizer step eager.
+# ResNet-18: cifar10_imp as the resnet phase runs it (the same cuts), plus
+# use_compile. DeiT-Small/16: the train phase's configuration, plus
+# use_compile (2 levels of 4 steps, 2 eval batches a level).
+COMPILE_RESNET_OVERRIDES = RESNET_OVERRIDES + ["pruning_params.target_sparsity=0.2",
+                                               "model_params.use_compile=true"]
+COMPILE_TRAIN_OVERRIDES = TRAIN_OVERRIDES + ["model_params.use_compile=true"]
+# One bf16 step, compiled against eager, from the same weights on the same
+# batch: inductor fuses the casts and reorders the reductions, so the two
+# round at other places. Each is held to the fp32 gradient of the same
+# step: the compiled one within twice the eager one's distance, plus 1e-3
+# of the fp32 gradient's norm, the fp32 noise of a train-mode BatchNorm's
+# scale and bias gradients (~1e-3 of their norm against
+# float64); the median over tensors within twice eager's.
+GRAD_COMPILED_FACTOR = 2.0
+GRAD_COMPILED_FLOOR = 1e-3
+PROFILED_STEPS = 3
+
+
+def _check_compiled_grads(tag: str, compiled: dict, eager: dict, ref: dict) -> None:
+    """The bf16 compiled step's gradient against the fp32 one, as the eager
+    bf16 step's is (GRAD_COMPILED_* above)."""
+    w_c, w_e = _whole_rel(compiled, ref), _whole_rel(eager, ref)
+    m_c = statistics.median(_rel(compiled, ref).values())
+    m_e = statistics.median(_rel(eager, ref).values())
+    limit = GRAD_COMPILED_FACTOR * w_e + GRAD_COMPILED_FLOOR
+    finite = all(bool(g.isfinite().all()) for g in compiled.values())
+    log(f"{tag} grads bfloat16 compiled vs eager, against the fp32 gradient: whole "
+        f"||G - G_fp32|| / ||G_fp32|| compiled {w_c:.3e}, eager {w_e:.3e} (compiled's limit "
+        f"{limit:.3e}); per tensor median compiled {m_c:.3e}, eager {m_e:.3e} (limit "
+        f"{GRAD_COMPILED_FACTOR:g} x eager's); compiled vs eager whole "
+        f"{_whole_rel(compiled, eager):.3e}; finite={finite}")
+    if not finite or w_c > limit or m_c > GRAD_COMPILED_FACTOR * m_e:
+        raise AssertionError(f"{tag}: the compiled bf16 gradient disagrees with eager's")
+
+
+def _compile_stages(top: int = 8) -> str:
+    """The ``top`` largest of dynamo's and inductor's timed compile stages
+    so far in this process, in seconds summed over every compile."""
+    from torch._dynamo.utils import compile_times
+
+    names, values = compile_times(repr="csv", aggregate=True)
+    stages = sorted(zip(names, map(float, values)), key=lambda kv: -kv[1])[:top]
+    return "; ".join(f"{name} {sec:.1f}" for name, sec in stages)
+
+
+def _kinds(kernels: list) -> dict:
+    """Device ms per step and kernel names by kind (``_kernel_kind``)."""
+    kinds: dict = {}
+    for name, ms in kernels:
+        kind = kinds.setdefault(_kernel_kind(name), [0.0, 0])
+        kind[0] += ms
+        kind[1] += 1
+    return kinds
+
+
+def _kinds_line(kinds: dict) -> str:
+    return "; ".join(f"{k} {ms:.3f} ({n} kernel names)"
+                     for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]))
+
+
+def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
+    import torch
+    from torch._dynamo.utils import counters
+    from torch.profiler import ProfilerActivity, profile
+
+    import run_experiment_torch
+    from turboprune_tpu_torch.config.compose import compose
+    from turboprune_tpu_torch.data.augment import CIFAR10_MEAN, CIFAR10_STD, normalize_uint8
+    from turboprune_tpu_torch.data.synthetic import synthetic_arrays
+    from turboprune_tpu_torch.harness import PruningHarness
+    from turboprune_tpu_torch.models import create_model
+    from turboprune_tpu_torch.ops import flash, masking
+    from turboprune_tpu_torch.train import mark_buffers_static
+    from turboprune_tpu_torch.utils import ExperimentCheckpoints
+
+    cuda = torch.device("cuda")
+    launch_counters = (flash.flash_fwd_cuda, flash.flash_bwd_dq_cuda, flash.flash_bwd_dkv_cuda)
+    skips_before = counters["inductor"]["cudagraph_skips"]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_compile_") as base:
+        # ---- ResNet-18 IMP, compiled: the main path, counts at 0 just before
+        recorder = _Recorder()
+        for c in launch_counters:
+            c.launches = 0
+        rc, expt, wall = _run_config(
+            "cifar10_imp", COMPILE_RESNET_OVERRIDES + [f"experiment_params.base_dir={base}/imp"],
+            recorder)
+        launches = {c.__name__: c.launches for c in launch_counters}
+        # ---- end of the main path
+        skips = counters["inductor"]["cudagraph_skips"] - skips_before
+        log(f"compile resnet imp: run_experiment_torch main --config-name=cifar10_imp "
+            f"model_params.use_compile=true -> {rc} in {wall:.1f} s (compiles, data "
+            f"generation, init, checkpoints included; the eager resnet phase's run "
+            f"{resnet_eager['wall_s']:.1f} s); K1/K2/K3 launches {launches}; dynamo graphs "
+            f"after level 0 {recorder.graphs.get(0)}, after level 1 {recorder.graphs.get(1)}; "
+            f"inductor cudagraph skips {skips}")
+        if (rc != 0 or any(launches.values()) or skips
+                or recorder.graphs.get(1) != recorder.graphs.get(0)):
+            raise AssertionError("compiled cifar10_imp: rc, launches, a recompile at level 1 "
+                                 "or a CUDA-graph skip")
+        rows, level1 = _check_imp_run("compile resnet imp", expt, recorder)
+        img_s = [float(r["samples_per_sec"]) for r in rows]
+        log(f"compile resnet seconds: first train step {recorder.first_step_s:.2f} s (dynamo "
+            f"and inductor compile of forward and backward, CUDA-graph warm-up included), "
+            f"evaluations {', '.join(f'{t:.2f}' for t in recorder.eval_s)} s (the first "
+            f"compiles the eval graph); img/s per IMP epoch compiled "
+            f"{img_s[0]:.1f} (compiles included) / {img_s[1]:.1f}, eager "
+            + " / ".join(f"{v:.1f}" for v in resnet_eager["img_s"]))
+
+        log(f"compile resnet compile seconds by stage (torch._dynamo compile_times, summed, "
+            f"largest first): {_compile_stages()}")
+
+        # ---- the compiled bf16 step at batch 512: time and device work
+        harness = PruningHarness(
+            compose("cifar10_imp", RESNET_OVERRIDES[:1] + [
+                "dataset_params.synthetic_num_train=512",
+                "dataset_params.synthetic_num_test=512",
+                "model_params.use_compile=true",
+                f"experiment_params.base_dir={base}/timing"]),
+            ("", str(Path(base) / "timing")), device="cuda")
+        harness.setup_level(1)
+        batch = next(iter(harness.loaders.train_loader))
+
+        def step():
+            return harness._train_step(harness.state, batch)
+
+        step_ms = _call_ms(step, reps=5, warmup=3)
+        busy_ms, _, kernels = _device_busy_ms(step, reps=PROFILED_STEPS, inference=False,
+                                              top=None)
+        kinds = _kinds(kernels)
+        idle = max(0.0, 1 - busy_ms / step_ms) * 100 if busy_ms else float("nan")
+        e = resnet_eager
+        log(f"compile resnet train step (ResNet-18 CIFAR, batch {RESNET_BATCH}, bf16): "
+            f"{step_ms:.3f} ms (CUDA events around one step, host work included, median of 5; "
+            f"eager {e['step_ms']:.3f}); device busy {busy_ms:.3f} ms per step (torch.profiler, "
+            f"{PROFILED_STEPS} replayed steps; eager {e['busy_ms']:.3f}), idle {idle:.1f}% "
+            f"(eager {max(0.0, 1 - e['busy_ms'] / e['step_ms']) * 100:.1f}%); "
+            f"{RESNET_BATCH / step_ms * 1e3:.0f} img/s by step time")
+        log(f"compile resnet train step device time by kind (ms per step): {_kinds_line(kinds)}; "
+            f"eager: {_kinds_line(e['kinds'])}")
+        if kernels:
+            log("compile resnet train step top device kernels (ms per step): "
+                + "; ".join(f"{name} {ms:.3f}" for name, ms in kernels[:5]))
+
+        # ---- one step compiled against eager: bf16 at batch 512 ...
+        weights = {k: v.detach().clone() for k, v in harness.state.model.state_dict().items()}
+        masks = {p: m.to(cuda) for p, m in level1["masks"].items()}
+
+        def resnet(dtype):
+            model = create_model("resnet18", 10, "CIFAR10", compute_dtype=dtype).to(cuda)
+            model.load_state_dict(weights)
+            return model
+
+        ref = _grads(resnet(torch.float32), masks, *batch)
+        eager16 = _grads(resnet(torch.bfloat16), masks, *batch)
+        model = resnet(torch.bfloat16)
+        mark_buffers_static(model)
+        compiled16 = _grads(model, masks, *batch, forward=harness._train_forward)
+        _check_compiled_grads(f"compile resnet batch {RESNET_BATCH}", compiled16, eager16, ref)
+        del ref, eager16, compiled16, model, harness
+        # ... and fp32 at batch 32 beside the CPU and float64, TF32 off
+        _card_vs_cpu(level1["masks"], compiled=True)
+
+        # ---- DeiT-Small/16 with flash, compiled: the main path, counts at 0;
+        # the profiler counts the kernels' launches (CUDA-graph replays run no
+        # Python, so the wrappers' counters see eager, warm-up and recording
+        # calls only)
+        for c in launch_counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rc = run_experiment_torch.main(
+                ["--device", "cuda", "--config-name=imagenet_imp", *COMPILE_TRAIN_OVERRIDES,
+                 f"experiment_params.base_dir={base}/deit"])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in launch_counters}
+        # ---- end of the main path
+        device_launches = {name: sum(ev.count for ev in prof.key_averages()
+                                     if name in ev.key
+                                     and ev.device_type == torch.autograd.DeviceType.CUDA)
+                           for name in KERNEL_NAMES}
+        del prof
+        skips = counters["inductor"]["cudagraph_skips"] - skips_before
+        expect = dict(zip(KERNEL_NAMES, (DEPTH * (TRAIN_STEPS + EVAL_BATCHES),
+                                         DEPTH * TRAIN_STEPS, DEPTH * TRAIN_STEPS)))
+        log(f"compile deit: run_experiment_torch main --config-name=imagenet_imp (DeiT-Small/16, "
+            f"flash, batch 256, use_compile) -> {rc} in {wall:.1f} s (compiles included); "
+            f"kernel launches on the device (torch.profiler) {device_launches} (expected "
+            f"{expect}: 12 per forward, {TRAIN_STEPS} steps and {EVAL_BATCHES} eval batches); "
+            f"the wrappers' counters {launches} (eager, warm-up and recording calls); "
+            f"cudagraph skips {skips}")
+        if rc != 0 or device_launches != expect or skips:
+            raise AssertionError("compiled DeiT: rc, kernel launches or a CUDA-graph skip")
+        log(f"compile deit compile seconds by stage (since the process began): "
+            f"{_compile_stages()}")
+        (dexpt,) = [d for d in (Path(base) / "deit").iterdir() if d.is_dir()]
+        ckpts = ExperimentCheckpoints(dexpt)
+        level0, dlevel1 = ckpts.load_level(0), ckpts.load_level(1)
+        d0 = masking.overall_density(level0["masks"])
+        d1 = masking.overall_density(dlevel1["masks"])
+        n = masking.num_prunable(dlevel1["masks"])
+        losses = [float(r[k]) for lvl in (0, 1) for r in _read_csv(
+            dexpt / "metrics" / "level_wise_metrics" / f"level_{lvl}_metrics.csv")
+            for k in ("train_loss", "test_loss")]
+        exact, ladder = _mag_ladder(level0, dlevel1)
+        log(f"compile deit: densities {d0:.6f} / {d1:.6f} over {n} ({ladder}); losses {losses}")
+        if d0 != 1.0 or not exact or not all(map(math.isfinite, losses)):
+            raise AssertionError("compiled DeiT: densities or losses are wrong")
+
+        # ---- the compiled DeiT step: time, device work, launches per replay
+        harness = PruningHarness(
+            compose("imagenet_imp", COMPILE_TRAIN_OVERRIDES + [
+                "dataset_params.synthetic_num_train=256",
+                "dataset_params.synthetic_num_test=256"]),
+            ("", str(Path(base) / "deit_timing")), device="cuda")
+        harness.setup_level(1)
+        batch = next(iter(harness.loaders.train_loader))
+
+        def deit_step():
+            return harness._train_step(harness.state, batch)
+
+        deit_ms = _call_ms(deit_step, reps=5, warmup=3)
+        per_replay: dict = {}
+        deit_busy, ours, top = _device_busy_ms(deit_step, reps=PROFILED_STEPS, inference=False,
+                                               counts=per_replay)
+        t = train_eager
+        log(f"compile deit train step (DeiT-Small/16 @ 224, batch 256, bf16, flash): "
+            f"{deit_ms:.3f} ms (CUDA events, median of 5; eager {t['step_ms']:.3f}); device "
+            f"busy {deit_busy:.3f} ms per step ({PROFILED_STEPS} replayed steps; eager "
+            f"{t['busy_ms']:.3f}, compiled / eager {deit_busy / t['busy_ms']:.3f}), idle "
+            f"{max(0.0, 1 - deit_busy / deit_ms) * 100:.1f}% (eager "
+            f"{max(0.0, 1 - t['busy_ms'] / t['step_ms']) * 100:.1f}%); "
+            f"{256 / deit_ms * 1e3:.0f} img/s by step time; K1+K2+K3 "
+            f"{sum(ours.values()):.3f} ms; launches in {PROFILED_STEPS} replayed steps "
+            f"{per_replay}")
+        if top:
+            log("compile deit train step top device kernels (ms per step): "
+                + "; ".join(f"{name} {ms:.3f}" for name, ms in top))
+        if per_replay != dict.fromkeys(KERNEL_NAMES, DEPTH * PROFILED_STEPS):
+            raise AssertionError(f"K1/K2/K3 per replayed step {per_replay}, expected "
+                                 f"{DEPTH} each")
+
+        # ---- one DeiT step compiled against eager, level 1's weights and
+        # masks, the train phase's batch
+        cfg = compose("imagenet_imp", COMPILE_TRAIN_OVERRIDES)
+        x, y = synthetic_arrays(256, 224, 1000, seed=7)
+        images = normalize_uint8(torch.from_numpy(x).to(cuda), CIFAR10_MEAN, CIFAR10_STD)
+        labels = torch.from_numpy(y).long().to(cuda)
+        masks = {p: m.to(cuda) for p, m in dlevel1["masks"].items()}
+
+        def deit(impl, dtype):
+            model = create_model(cfg.model_params.model_name, 1000, "ImageNet",
+                                 compute_dtype=dtype, attention_impl=impl, image_size=224)
+            model.load_state_dict(dlevel1["params"])
+            return model.to(cuda)
+
+        ref = _grads(deit("dense", torch.float32), masks, images, labels)
+        eager16 = _grads(deit("flash", torch.bfloat16), masks, images, labels)
+        compiled16 = _grads(deit("flash", torch.bfloat16), masks, images, labels,
+                            forward=harness._train_forward)
+        _check_compiled_grads("compile deit batch 256", compiled16, eager16, ref)
+        del ref, eager16, compiled16, harness
+    from torch._inductor.async_compile import shutdown_compile_workers
+
+    shutdown_compile_workers()
+    log(f"compile phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"device_launches": device_launches}
 
 
 def main() -> int:
@@ -1886,15 +2286,20 @@ def main() -> int:
     bwd_timing = phase_backward_kernels()
     slice_out = phase_slice()
     train_out = phase_train()
-    phase_resnet()
+    resnet_out = phase_resnet()
     phase_resume()
     cyclic_out = phase_cyclic()
+    compile_out = phase_compile(resnet_out, train_out)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s on {card}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_flash_ms")
-    # Launches on the main paths: K1 in every forward, served, trained and
-    # trained in cycles; K2/K3 in every training backward.
-    trained = {k: train_out["launches"][k] + cyclic_out["launches"][k]
+    # Launches on the main paths: K1 in every forward, served, trained,
+    # trained in cycles and trained compiled; K2/K3 in every training
+    # backward. The wrappers count the eager paths; the profiler counts the
+    # compiled one, whose CUDA-graph replays run no Python.
+    compiled = dict(zip(("flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda"),
+                        (compile_out["device_launches"][k] for k in KERNEL_NAMES)))
+    trained = {k: train_out["launches"][k] + cyclic_out["launches"][k] + compiled[k]
                for k in train_out["launches"]}
     rows = [
         {**K1, "launches": slice_out["launches"] + trained["flash_fwd_cuda"],

@@ -104,14 +104,14 @@ def test_cuda_is_the_default_and_raises_without_it(tmp_path):
 @pytest.mark.parametrize(
     "override",
     [
-        "model_params.use_compile=true",
+        "experiment_params.profile_dir={tmp}/profile",
         "experiment_params.compact_train=true",
         "dataset_params.dataloader_type=grain",
         "optimizer_params.optimizer_name=ScheduleFreeSGD",
     ],
 )
 def test_unported_options_raise(tmp_path, override):
-    cfg = compose("cifar10_imp", OVERRIDES + [override,
+    cfg = compose("cifar10_imp", OVERRIDES + [override.format(tmp=tmp_path),
                                               f"experiment_params.base_dir={tmp_path}"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PruningHarness(cfg, ("", str(tmp_path / "x")), device="cpu")

@@ -96,7 +96,7 @@ class TestContract:
         assert torch_flash.flash_fwd_cuda.launches == before
 
     def test_cuda_path_refuses_a_block_k_the_kernel_does_not_run(self):
-        # K1 rescales per 128 keys; FlashAttention checks block_k before it
+        # K1 rescales per 128 keys; the flash_fwd op checks block_k before it
         # launches K1 on a CUDA tensor, instead of ignoring it.
         torch_flash.check_kernel_block_k(128)
         for block_k in (64, 256):

@@ -197,9 +197,12 @@ class ModelConfig:
     # graftlint: disable=conf-dead-schema-field -- reference-parity: accepted+validated for config compatibility, structurally meaningless in the pytree-mask port
     mask_layer_type: str = "ConvMask"
     # Reference knob `use_compile` toggles torch.compile
-    # (standard_pruning_harness.py:141). The port's step is eager PyTorch:
-    # use_compile=true is refused (harness.pruning_harness.refuse_unported)
-    # until ROADMAP.md queue A, item 3 ports the compiled step.
+    # (standard_pruning_harness.py:141). In the port, true trains and
+    # evaluates through the compiled step (train.steps.compile_forward):
+    # the masked forward, the loss and the metric sums under
+    # torch.compile(fullgraph=True), inductor with CUDA graphs on the card
+    # (aot_eager on a CPU device), the backward from AOTAutograd; the
+    # optimizer step stays eager. false runs the eager step.
     use_compile: bool = False
     # Local timm/DeiT torch checkpoint to warm-start ViT weights from
     # (reference deit.py:82-89 downloads these; no egress here, so the file

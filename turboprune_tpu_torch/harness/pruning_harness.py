@@ -11,14 +11,18 @@ preempted level re-enters at the next epoch. A CNN's
 BatchNorm running statistics live in the model's buffers: the train step
 moves them, the eval step reads them, and the model checkpoints carry
 them as ``batch_stats``.
-The JAX package runs a step (or a whole epoch) as one compiled program;
-here a step is eager PyTorch in a Python loop, and the metric sums stay on
-the device until the epoch's end.
+The JAX package runs a step (or a whole epoch) as one compiled program.
+Here a step runs from a Python loop: eagerly by default, or, with
+``model_params.use_compile``, through the compiled train and eval forwards
+(``train.compile_forward``: inductor under CUDA graphs on the card),
+built once per harness; the shapes do not change between levels, so
+nothing recompiles. The metric sums stay on the device until the epoch's
+end.
 
 Options of the JAX harness that later slices port raise here, naming the
 ROADMAP.md item: the sparse execution backends (``compact_train``,
 ``compact_eval``, ``nm_sparsity``), more than one device, the profiler
-trace, the compiled step (``use_compile``).
+trace.
 """
 
 from __future__ import annotations
@@ -35,12 +39,16 @@ from ..ops import masking
 from ..train import (
     TrainState,
     add_sums,
+    compile_forward,
     create_optimizer,
     create_schedule,
     create_train_state,
+    eval_forward,
     eval_step,
     make_train_step,
+    mark_buffers_static,
     reset_optimizer,
+    train_forward,
 )
 from ..utils import (
     MODEL_INIT,
@@ -73,7 +81,6 @@ def refuse_unported(cfg: MainConfig) -> None:
         "experiment_params.model_parallelism > 1": (ep.model_parallelism > 1, "item 13"),
         "experiment_params.profile_dir": (bool(ep.profile_dir), "item 17"),
         "model_params.pretrained_path": (bool(cfg.model_params.pretrained_path), "item 12"),
-        "model_params.use_compile": (cfg.model_params.use_compile, "item 3"),
     }
     for knob, (on, item) in unported.items():
         if on:
@@ -127,6 +134,14 @@ class PruningHarness:
             self.steps_per_epoch = min(self.steps_per_epoch, ep.max_steps_per_epoch)
         self.state: TrainState = create_train_state(self.model, self._make_optimizer)
         self._train_step = None
+        # The step's model work, compiled once for every level: params
+        # and statistics are read from their storage, masks and batches
+        # are graph inputs (train.compile_forward).
+        self._train_forward, self._eval_forward = train_forward, eval_forward
+        if cfg.model_params.use_compile:
+            mark_buffers_static(self.model)
+            self._train_forward = compile_forward(train_forward, self.device)
+            self._eval_forward = compile_forward(eval_forward, self.device)
 
     # ------------------------------------------------------------------ tx
     def setup_level(self, epochs: int) -> None:
@@ -140,7 +155,7 @@ class PruningHarness:
             steps_per_epoch=self.steps_per_epoch,
             warmup_fraction=op.warmup_fraction,
         )
-        self._train_step = make_train_step(schedule)
+        self._train_step = make_train_step(schedule, self._train_forward)
         self.state = reset_optimizer(self.state, self._make_optimizer)
 
     def maybe_rewind_optimizer(self, level: int) -> None:
@@ -181,7 +196,8 @@ class PruningHarness:
         """Full test pass; padded rows (label -1) count nowhere."""
         sums = None
         for batch in self.loaders.test_loader:
-            sums = add_sums(sums, eval_step(self.state.model, self.state.masks, batch))
+            sums = add_sums(sums, eval_step(self.state.model, self.state.masks, batch,
+                                            self._eval_forward))
         if sums is None:
             raise RuntimeError("test loader yielded no batches")
         sums = {k: float(v) for k, v in sums.items()}

@@ -93,7 +93,11 @@ class FlaxBatchNorm2d(nn.Module):
     Buffers ``mean`` and ``var`` are named after flax's ``batch_stats``
     leaves; there is no ``num_batches_tracked``. The running update is in
     place, so a ``functional_call`` handed other ``mean``/``var`` tensors
-    updates those and leaves the module's own untouched."""
+    updates those and leaves the module's own untouched. In a compiled
+    step (``train.compile_forward``) the buffers are static inputs
+    (``train.mark_buffers_static``) and the update is an in-place write the
+    CUDA graph replays; inductor fuses the fp32 statistics, the clamp and
+    the normalisation and keeps these numerics."""
 
     def __init__(
         self,

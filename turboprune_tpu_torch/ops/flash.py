@@ -1,6 +1,6 @@
 """Flash attention: the hand-written Hopper kernels K1 (forward), K2 (dq)
-and K3 (dk, dv), their plain PyTorch versions, and the autograd function
-that joins them.
+and K3 (dk, dv), their plain PyTorch versions, and the custom ops with
+the autograd formula that join them.
 
 Counterpart of ``turboprune_tpu/ops/flash.py``. Non-causal multi-head
 attention with a key-validity row shared across the batch, computed
@@ -9,11 +9,15 @@ by the online-softmax recurrence and backward by recomputation from
 (o, logsumexp).
 
 - ``flash_attention`` is the public entry point, with the JAX function's
-  signature and ``ValueError`` contract. It goes through ``FlashAttention``
-  (the counterpart of the ``jax.custom_vjp``): a CUDA tensor runs K1 forward
-  and K2/K3 backward (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) or
-  raises, also for a ``block_k`` other than K1's 128; only a CPU tensor
-  takes the plain versions.
+  signature and ``ValueError`` contract. It calls the custom op
+  ``turboprune_tpu_torch::flash_fwd`` (K1), whose registered backward
+  (the counterpart of the ``jax.custom_vjp``) calls ``::flash_bwd_dq`` (K2)
+  and ``::flash_bwd_dkv`` (K3). Eager and compiled steps take this one
+  route: dynamo and AOTAutograd see the ops through their fake
+  implementations and call them from the graph. A CUDA tensor runs the
+  kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) or raises, also
+  for a ``block_k`` other than K1's 128; only a CPU tensor takes the plain
+  versions.
 - ``flash_attention_plain`` (K1), ``flash_bwd_dq_plain`` (K2) and
   ``flash_bwd_dkv_plain`` (K3) run the TPU kernels' recurrences over blocks
   of ``block_q``/``block_k`` in torch ops; ``flash_backward_plain`` is the
@@ -21,7 +25,10 @@ by the online-softmax recurrence and backward by recomputation from
   kernels and ``chip_smoke.py`` holds the CUDA kernels against them on the
   card.
 - ``flash_fwd_cuda``, ``flash_bwd_dq_cuda`` and ``flash_bwd_dkv_cuda`` are
-  the kernels' wrappers; each counts its launches in ``.launches``.
+  the kernels' wrappers; each counts its launches in ``.launches``. The
+  count runs in Python, so a CUDA-graph replay of a compiled step, which
+  runs no Python, does not move it: there the kernels' launches are read
+  from the profiler's kernel names.
 """
 
 from __future__ import annotations
@@ -29,7 +36,6 @@ from __future__ import annotations
 import ctypes
 
 import torch
-from torch.autograd.function import once_differentiable
 
 NEG_BIG = -1e30
 KERNEL_HEAD_DIM = 64
@@ -70,40 +76,109 @@ def flash_attention(
     _validate(q, kv_valid, block_q, block_k)
     if not (q.is_cuda or q.device.type == "cpu"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    return FlashAttention.apply(q, k, v, kv_valid, scale, block_q, block_k)
+    return flash_fwd(q, k, v, kv_valid, scale, block_q, block_k)[0]
 
 
-class FlashAttention(torch.autograd.Function):
-    """Counterpart of the JAX ``custom_vjp``: saves (q, k, v, mask, o, lse)
-    from the forward; the backward computes ``drow = sum_d dO*O`` with a
-    torch reduction (an XLA reduction in JAX) and then K2 and K3 on CUDA, or
-    ``flash_backward_plain`` on the CPU."""
+# ------------------------------------------------------------- custom ops
+# K1, K2 and K3 as torch.library custom ops, the counterpart of the JAX
+# ``custom_vjp``: opaque to dynamo and AOTAutograd, so a compiled step
+# traces through attention without a graph break and calls the kernels
+# from inside its graph (and its CUDA graph). A CUDA tensor launches the
+# kernel or raises; only a CPU tensor takes the plain version. Outputs are
+# contiguous on both routes, as the fake implementations say.
+@torch.library.custom_op("turboprune_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_valid: torch.Tensor,
+    scale: float,
+    block_q: int,
+    block_k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1: (o in q's dtype, lse [bh, seq, 1] fp32)."""
+    if q.is_cuda:
+        check_kernel_block_k(block_k)
+        return flash_fwd_cuda(q, k, v, kv_valid, scale)
+    o, lse = flash_attention_plain(q, k, v, kv_valid, scale, block_q, block_k)
+    return o.contiguous(), lse.contiguous()
 
-    @staticmethod
-    def forward(ctx, q, k, v, kv_valid, scale, block_q, block_k):
-        if q.is_cuda:
-            check_kernel_block_k(block_k)
-            o, lse = flash_fwd_cuda(q, k, v, kv_valid, scale)
-        else:
-            o, lse = flash_attention_plain(q, k, v, kv_valid, scale, block_q, block_k)
-        ctx.save_for_backward(q, k, v, kv_valid, o, lse)
-        ctx.scale = scale
-        ctx.blocks = (block_q, block_k)
-        return o
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, do):
-        q, k, v, kv_valid, o, lse = ctx.saved_tensors
-        if q.is_cuda:
-            drow = row_correction(o, do)
-            dq = flash_bwd_dq_cuda(q, k, v, kv_valid, do, lse, drow, ctx.scale)
-            dk, dv = flash_bwd_dkv_cuda(q, k, v, kv_valid, do, lse, drow, ctx.scale)
-        else:
-            dq, dk, dv = flash_backward_plain(
-                q, k, v, kv_valid, o, lse, do, ctx.scale, *ctx.blocks
-            )
-        return dq, dk, dv, None, None, None, None
+@flash_fwd.register_fake
+def _(q, k, v, kv_valid, scale, block_q, block_k):
+    bh, s_len, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((bh, s_len, 1), dtype=torch.float32)
+
+
+@torch.library.custom_op("turboprune_tpu_torch::flash_bwd_dq", mutates_args=())
+def flash_bwd_dq(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_valid: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    drow: torch.Tensor,
+    scale: float,
+    block_k: int,
+) -> torch.Tensor:
+    """K2: dq in q's dtype."""
+    if q.is_cuda:
+        check_kernel_block_k(block_k)
+        return flash_bwd_dq_cuda(q, k, v, kv_valid, do, lse, drow, scale)
+    return flash_bwd_dq_plain(q, k, v, kv_valid, do, lse, drow, scale, block_k).contiguous()
+
+
+@flash_bwd_dq.register_fake
+def _(q, k, v, kv_valid, do, lse, drow, scale, block_k):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("turboprune_tpu_torch::flash_bwd_dkv", mutates_args=())
+def flash_bwd_dkv(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_valid: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    drow: torch.Tensor,
+    scale: float,
+    block_q: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3: (dk, dv) in the input dtype."""
+    if q.is_cuda:
+        return flash_bwd_dkv_cuda(q, k, v, kv_valid, do, lse, drow, scale)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, kv_valid, do, lse, drow, scale, block_q)
+    return dk.contiguous(), dv.contiguous()
+
+
+@flash_bwd_dkv.register_fake
+def _(q, k, v, kv_valid, do, lse, drow, scale, block_q):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, kv_valid, scale, block_q, block_k = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, kv_valid, o, lse)
+    ctx.scale = scale
+    ctx.blocks = (block_q, block_k)
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_fwd_backward(ctx, do, _dlse):
+    """``drow = sum_d dO*O`` by a torch reduction (an XLA reduction in
+    JAX), then K2 and K3 (their plain versions on the CPU)."""
+    q, k, v, kv_valid, o, lse = ctx.saved_tensors
+    block_q, block_k = ctx.blocks
+    drow = row_correction(o, do)
+    dq = flash_bwd_dq(q, k, v, kv_valid, do, lse, drow, ctx.scale, block_k)
+    dk, dv = flash_bwd_dkv(q, k, v, kv_valid, do, lse, drow, ctx.scale, block_q)
+    return dq, dk, dv, None, None, None, None
+
+
+flash_fwd.register_autograd(_flash_fwd_backward, setup_context=_flash_fwd_setup)
 
 
 def row_correction(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:

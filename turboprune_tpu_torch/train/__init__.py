@@ -5,10 +5,14 @@ from .schedules import create_schedule
 from .state import TrainState, create_train_state, reset_optimizer
 from .steps import (
     add_sums,
+    compile_forward,
     cross_entropy_sum,
+    eval_forward,
     eval_step,
     make_train_step,
+    mark_buffers_static,
     masked_forward,
+    train_forward,
 )
 
 __all__ = [
@@ -20,6 +24,10 @@ __all__ = [
     "create_schedule",
     "make_train_step",
     "eval_step",
+    "train_forward",
+    "eval_forward",
+    "compile_forward",
+    "mark_buffers_static",
     "masked_forward",
     "cross_entropy_sum",
     "add_sums",
