@@ -77,6 +77,23 @@ result line):
             and device work against eager, one bf16 step's gradient against
             eager's.
 
+9. imagenet conf/imagenet_imp_tpk.yaml (ResNet-50 at 224, 1000 classes, bf16)
+            fed by the native .tpk loader through the prefetch engine
+            (runs between cyclic and compile): build the reader
+            (csrc/tpkdata.cpp, g++) and print what the machine offers it
+            (jpeglib.h, libjpeg, Pillow, grain, cores, disk); measure the
+            peak memory at batch 64 and 128 and take the largest of 512,
+            256, 128 that fits; pack .tpk files from seeded JPEGs (raw
+            samples where the reader has no JPEG decoder, said on its own
+            line); the host's decode rate at 224; one device batch against
+            the reader's CPU read of its indices (uint8 bit for bit,
+            normalised within 1e-6); two IMP levels of 8 steps through
+            run_experiment_torch's main (densities, rewind, finite losses,
+            no K1/K2/K3 launch); the same batches with scan_chunk_steps 8
+            and 1 (device hashes); per epoch the fed img/s beside
+            synthetic data's, the pipeline's waits, H2D per batch, the idle
+            share and the peak memory; the step's time by kind.
+
 Prints the card (nvidia-smi name and power limit), a ``kernels`` JSON line,
 and as the last line ``{"ok": true, "device": {...}}``. Needs one CUDA card;
 without one it exits non-zero.
@@ -1498,7 +1515,8 @@ def _card_vs_cpu(masks: dict, compiled: bool = False) -> None:
         raise AssertionError(f"the card's fp32 ResNet step disagrees with the CPU's: {failed}")
 
 
-def _check_imp_run(tag: str, expt: Path, recorder: _Recorder) -> tuple[list, dict]:
+def _check_imp_run(tag: str, expt: Path, recorder: _Recorder,
+                   steps: int = RESNET_STEPS) -> tuple[list, dict]:
     """The checks of a two-level cifar10_imp run: finite losses, densities
     1.0 / 0.8 to 1/N, monotone masks, level 1 starting from model_init in
     params and batch_stats bit for bit, and two evaluations in eval mode
@@ -1515,7 +1533,7 @@ def _check_imp_run(tag: str, expt: Path, recorder: _Recorder) -> tuple[list, dic
         log(f"{tag} level {r['level']}: train_loss {float(r['train_loss']):.4f} "
             f"test_loss {float(r['test_loss']):.4f} test_acc {float(r['test_acc']):.2f}% "
             f"{float(r['samples_per_sec']):.1f} img/s over the epoch "
-            f"({RESNET_STEPS} steps, {float(r['epoch_seconds']):.2f} s)")
+            f"({steps} steps, {float(r['epoch_seconds']):.2f} s)")
     losses = [float(r[k]) for r in rows for k in ("train_loss", "test_loss")]
     if len(rows) != 2 or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"expected two levels of finite losses, got {losses}")
@@ -2269,6 +2287,457 @@ def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
     return {"device_launches": device_launches}
 
 
+# ---------------------------------------------------------------- phase 9
+# ImageNet fed by the .tpk loader: conf/imagenet_imp_tpk.yaml as shipped
+# (ResNet-50 with the ImageNet stem at 224 x 224, 1000 classes, bf16, SGD lr
+# 0.2, triangular schedule, IMP, scan_chunk_steps 8, prefetch_depth 4,
+# decode_workers 2). Cut: the data (seeded images the phase packs itself),
+# one epoch of 8 steps a level, two levels, and the batch where the card's
+# memory forces it: the shipped 512 is the global batch of the reference's
+# 8 GPUs, so the phase measures the peak at 64 and 128 and runs the largest
+# of 512, 256 and 128 whose predicted peak, the prefetch queue's device
+# batches included, stays within 90% of the card's memory.
+IMAGENET_STEPS = 8
+IMAGENET_BATCHES = (512, 256, 128)
+IMAGENET_PROBE = (64, 128)
+IMAGENET_MEMORY_SHARE = 0.9
+IMAGENET_DISTINCT = 16
+IMAGENET_SIZES = ((500, 375), (375, 500))   # ImageNet's most common shapes
+IMAGENET_NORM_TOL = 1e-6                     # normalised batch vs the CPU's
+IMAGENET_RATE_BATCHES = 2                    # batches per host decode-rate reading
+
+
+def _probe_answers() -> list[str]:
+    """What the card's machine offers the .tpk reader and the grain loader."""
+    import importlib.util
+    import os
+    import shutil
+
+    from turboprune_tpu_torch.data import native
+
+    ld = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True).stdout
+    libs = [line.strip().split(" ")[0] for line in ld.splitlines() if "jpeg" in line]
+    try:
+        import PIL
+
+        pil = f"Pillow {PIL.__version__}"
+    except ImportError:
+        pil = "no Pillow"
+    grain = importlib.util.find_spec("grain") is not None
+    disk = shutil.disk_usage(tempfile.gettempdir())
+    return [
+        f"/usr/include/jpeglib.h exists: {Path('/usr/include/jpeglib.h').exists()}; "
+        f"g++ finds <jpeglib.h>: {native.jpeg_header_found()}",
+        f"ldconfig -p | grep jpeg: {libs or 'nothing'}",
+        f"import PIL: {pil}; import grain: {'works' if grain else 'no module named grain'}",
+        f"nproc {os.cpu_count()}; {tempfile.gettempdir()}: {disk.free / 1e9:.1f} GB free "
+        f"of {disk.total / 1e9:.1f} GB",
+    ]
+
+
+def _imagenet_jpegs(seed: int = 0) -> list[bytes]:
+    """IMAGENET_DISTINCT JPEGs encoded with Pillow from seeded images at
+    ImageNet's common sizes: smooth colour fields with a little noise."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    blobs = []
+    for i in range(IMAGENET_DISTINCT):
+        w, h = IMAGENET_SIZES[i % len(IMAGENET_SIZES)]
+        low = rng.integers(0, 256, size=(h // 16, w // 16, 3), dtype=np.uint8)
+        arr = np.asarray(Image.fromarray(low).resize((w, h), Image.BILINEAR), np.int16)
+        arr = np.clip(arr + rng.integers(-8, 9, size=arr.shape), 0, 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="JPEG", quality=90)
+        blobs.append(buf.getvalue())
+    return blobs
+
+
+def _raw_images(blobs: list, n: int, size: int = 224) -> np.ndarray:
+    """``n`` raw samples from the JPEGs: each decoded by Pillow, its center
+    square resized to ``size``, taken in turn, with the sample's index
+    written into its first two bytes so that no two samples are alike."""
+    import io
+
+    from PIL import Image
+
+    base = []
+    for blob in blobs:
+        img = Image.open(io.BytesIO(blob)).convert("RGB")
+        w, h = img.size
+        s = min(w, h)
+        box = ((w - s) // 2, (h - s) // 2, (w - s) // 2 + s, (h - s) // 2 + s)
+        base.append(np.asarray(img.resize((size, size), Image.BILINEAR, box=box), np.uint8))
+    images = np.stack([base[i % len(base)] for i in range(n)])
+    images[:, 0, 0, 0] = np.arange(n) % 256
+    images[:, 0, 0, 1] = np.arange(n) // 256 % 256
+    return images
+
+
+def _u8_hash(images) -> "torch.Tensor":
+    """A hash of a normalised batch's uint8 images, on the device: each
+    pixel recovered exactly from its normalised value, then a weighted
+    sum (int64) over positions."""
+    import torch
+
+    from turboprune_tpu_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD
+
+    mean = torch.tensor(IMAGENET_MEAN, device=images.device)
+    std = torch.tensor(IMAGENET_STD, device=images.device)
+    u8 = torch.round((images * std + mean) * 255.0).to(torch.int64).flatten()
+    weights = torch.arange(u8.numel(), device=images.device) % 65521 + 1
+    return (u8 * weights).sum()
+
+
+def _busy_ms(prof) -> float:
+    """Device busy time of a profiled window: the union of its kernels'
+    intervals (both streams; copies and fills left out)."""
+    import torch
+
+    spans = []
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and "Memcpy" not in e.name and "Memset" not in e.name):
+            spans.append((e.time_range.start, e.time_range.end))
+    busy, last = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > last:
+            busy += end - max(start, last)
+            last = end
+    return busy / 1e3
+
+
+class _FeedRecorder(_Recorder):
+    """``_Recorder`` plus, for each train step, a hash of its batch's uint8
+    images (kept on the device until the run ends) and, with ``profiled``,
+    for each train epoch, its device busy time from torch.profiler, the
+    device time of its host-to-device copies (CUDA events around each
+    ``DeviceTransfer.copy``, on the transfer's stream) and its peak
+    memory."""
+
+    def __init__(self, profiled: bool = True):
+        super().__init__()
+        self.profiled = profiled
+        self.hashes = []
+        self.epochs = []
+        self.harness = None
+
+    def harness_cls(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        base = super().harness_cls()
+        recorder = self
+
+        class Harness(base):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                recorder.harness = self
+
+            def setup_level(self, epochs):
+                super().setup_level(epochs)
+                step = self._train_step
+
+                def hashed(state, batch):
+                    recorder.hashes.append(_u8_hash(batch[0]))
+                    return step(state, batch)
+
+                self._train_step = hashed
+
+            def train_epoch(self):
+                if not recorder.profiled:
+                    row = super().train_epoch()
+                    recorder.epochs.append(row)
+                    return row
+                from unittest import mock
+
+                from turboprune_tpu_torch.data.pipeline import DeviceTransfer
+
+                copies = []
+                copy = DeviceTransfer.copy
+
+                def timed_copy(transfer, batches, stacked):
+                    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    a.record()
+                    out = copy(transfer, batches, stacked)
+                    b.record()
+                    copies.append((a, b, len(batches)))
+                    return out
+
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                with mock.patch.object(DeviceTransfer, "copy", timed_copy), profile(
+                        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    row = super().train_epoch()
+                    torch.cuda.synchronize()
+                recorder.epochs.append({
+                    **row, "busy_ms": _busy_ms(prof),
+                    "h2d_ms": sum(a.elapsed_time(b) for a, b, _ in copies),
+                    "h2d_batches": sum(n for _, _, n in copies),
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+                return row
+
+        return Harness
+
+
+def _imagenet_overrides(train, val, batch, base, extra=()) -> list:
+    """The only overrides of the phase's runs (``_run_config`` reads the
+    base dir from the last)."""
+    return [f"dataset_params.tpk_train_path={train}", f"dataset_params.tpk_val_path={val}",
+            "dataset_params.tpk_auto_pack=false", "experiment_params.epochs_per_level=1",
+            f"experiment_params.max_steps_per_epoch={IMAGENET_STEPS}",
+            "pruning_params.target_sparsity=0.2", f"dataset_params.total_batch_size={batch}",
+            *extra, f"experiment_params.base_dir={base}"]
+
+
+def _peak_gb(batches: tuple, base: str) -> dict:
+    """Peak device memory of two eager bf16 ResNet-50 train steps at each
+    of ``batches`` (imagenet_imp_tpk's model, optimizer and step; slices of
+    one synthetic batch)."""
+    import gc
+
+    import torch
+
+    from turboprune_tpu_torch.config.compose import compose
+    from turboprune_tpu_torch.harness import PruningHarness
+
+    n = max(batches)
+    cfg = compose("imagenet_imp_tpk", [
+        "dataset_params.dataloader_type=synthetic", f"dataset_params.total_batch_size={n}",
+        f"dataset_params.synthetic_num_train={n}", f"dataset_params.synthetic_num_test={n}",
+        f"experiment_params.base_dir={base}"])
+    harness = PruningHarness(cfg, ("", f"{base}/probe"), device="cuda")
+    harness.setup_level(1)
+    images, labels = next(iter(harness.loaders.train_loader))
+    peaks = {}
+    for b in batches:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            harness._train_step(harness.state, (images[:b], labels[:b]))
+        torch.cuda.synchronize()
+        peaks[b] = torch.cuda.max_memory_allocated() / 1e9
+    del harness, images, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peaks
+
+
+def _prefetch_gb(batch: int, cfg) -> float:
+    """Device bytes the chunked prefetch can hold: the output queue's
+    ``max(prefetch_depth, K)`` chunks, one in the transfer stage and one
+    with the consumer, each K batches of fp32 images."""
+    dp = cfg.dataset_params
+    k = dp.scan_chunk_steps
+    chunks = max(dp.prefetch_depth, k) + 2
+    return chunks * k * batch * dp.image_size ** 2 * 3 * 4 / 1e9
+
+
+def phase_imagenet(card: str) -> dict:
+    import torch
+
+    from turboprune_tpu_torch.config.compose import compose
+    from turboprune_tpu_torch.data import native
+    from turboprune_tpu_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD, normalize_uint8
+    from turboprune_tpu_torch.data.pipeline import DeviceTransfer
+    from turboprune_tpu_torch.ops import flash
+
+    t_phase = time.perf_counter()
+    counters = (flash.flash_fwd_cuda, flash.flash_bwd_dq_cuda, flash.flash_bwd_dkv_cuda)
+    # ---- build the reader from the checkout's source; the machine's answers
+    t0 = time.perf_counter()
+    lib = native.build_reader()
+    has_jpeg = native.reader_has_jpeg()
+    log(f"imagenet build: g++ csrc/tpkdata.cpp -> build/{lib.name} in "
+        f"{time.perf_counter() - t0:.2f} s; JPEG decoder built in: {has_jpeg}")
+    for line in _probe_answers():
+        log(f"imagenet probe: {line}")
+    cfg = compose("imagenet_imp_tpk", [])
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_imagenet_") as base:
+        # ---- the batch: the peak at 64 and 128, then the largest that fits
+        peaks = _peak_gb(IMAGENET_PROBE, base)
+        (b0, p0), (b1, p1) = sorted(peaks.items())
+        per_image = (p1 - p0) / (b1 - b0)
+        total = torch.cuda.get_device_properties(0).total_memory / 1e9
+        predicted = {b: p0 + per_image * (b - b0) + _prefetch_gb(b, cfg)
+                     for b in IMAGENET_BATCHES}
+        fits = [b for b in IMAGENET_BATCHES if predicted[b] <= IMAGENET_MEMORY_SHARE * total]
+        log("imagenet memory: peak of two eager bf16 ResNet-50 train steps "
+            + ", ".join(f"{p:.2f} GB at batch {b}" for b, p in peaks.items())
+            + f" ({per_image * 1e3:.1f} MB per image); predicted with the prefetch queue "
+            + ", ".join(f"{predicted[b]:.1f} GB at {b}" for b in IMAGENET_BATCHES)
+            + f" of the card's {total:.1f} GB (limit {IMAGENET_MEMORY_SHARE:.0%}) on {card}")
+        if not fits:
+            raise AssertionError("no batch of 512, 256, 128 fits the card")
+        batch = fits[0]
+        log(f"imagenet batch: {batch} (shipped: {cfg.dataset_params.total_batch_size}, the "
+            f"global batch of 8 GPUs)")
+
+        # ---- pack: JPEG .tpk files (ImageFolder val, repeated train), and
+        # raw ones, which the training reads where the reader has no JPEG
+        blobs = _imagenet_jpegs()
+        n_train = (IMAGENET_STEPS + 1) * batch
+        n_val = batch + batch // 2
+        root = Path(base) / "data"
+        for i, blob in enumerate(blobs):
+            d = root / "val" / f"n{i % 2:08d}"
+            d.mkdir(parents=True, exist_ok=True)
+            (d / f"{i}.JPEG").write_bytes(blob)
+        t0 = time.perf_counter()
+        labels = np.random.default_rng(1).integers(0, 1000, size=n_train).astype(np.int32)
+        jpeg_train = native.write_tpk_jpegs(root / "train.tpk",
+                                            [blobs[i % len(blobs)] for i in range(n_train)],
+                                            labels)
+        jpeg_val = native.pack_imagefolder(root / "val", root / "val.tpk")
+        raw_train = native.write_tpk_raw(root / "train_raw.tpk", _raw_images(blobs, n_train),
+                                         labels)
+        raw_val = native.write_tpk_raw(
+            root / "val_raw.tpk", _raw_images(blobs[::-1], n_val),
+            np.random.default_rng(2).integers(0, 1000, size=n_val).astype(np.int32))
+        log(f"imagenet pack: {len(blobs)} distinct JPEGs at {IMAGENET_SIZES} "
+            f"({sum(map(len, blobs)) / len(blobs) / 1e3:.1f} kB each): train.tpk {n_train} "
+            f"samples ({jpeg_train.stat().st_size / 1e6:.1f} MB), val.tpk (pack_imagefolder) "
+            f"{len(blobs)}; raw at 224: {n_train} / {n_val} samples "
+            f"({raw_train.stat().st_size / 1e6:.1f} MB) in {time.perf_counter() - t0:.1f} s")
+        train, val = (jpeg_train, jpeg_val) if has_jpeg else (raw_train, raw_val)
+        if not has_jpeg:
+            try:
+                native.TpkFile(jpeg_train)
+            except RuntimeError as e:
+                refused = "jpeglib.h" in str(e)
+            else:
+                refused = False
+            log("imagenet: JPEG decode was NOT run on the card: the reader was built "
+                "without its JPEG decoder (no <jpeglib.h> on this machine); opening a "
+                f"JPEG .tpk raises naming the header: {refused}; the training reads the "
+                "raw .tpk")
+            if not refused:
+                raise AssertionError("a JPEG .tpk opened by a reader without JPEG")
+
+        # ---- the host's decode rate at 224
+        rate_idx = np.arange(IMAGENET_RATE_BATCHES * batch)
+        rates = []
+        f = native.TpkFile(train)
+        for policy in ("train", "eval") if has_jpeg else ("raw",):
+            for nthreads in (1, 0):
+                t0 = time.perf_counter()
+                if has_jpeg:
+                    f.decode(rate_idx, 224, policy == "train", seed=1, nthreads=nthreads)
+                else:
+                    f.read_raw(rate_idx, nthreads=nthreads)
+                dt = time.perf_counter() - t0
+                rates.append(f"{policy} nthreads {nthreads or native._resolve_nthreads(0)}: "
+                             f"{len(rate_idx) / dt:.0f} img/s")
+        log(f"imagenet host decode rate at 224 ({'JPEG' if has_jpeg else 'raw read'}, "
+            f"{len(rate_idx)} samples a reading): " + "; ".join(rates) + f" on {card}")
+
+        # ---- a device batch against the reader's CPU read of its indices
+        loader = native.TpkImageLoader(train, batch, train=True, image_size=224, seed=0,
+                                       device="cuda")
+        order = np.random.default_rng(0).permutation(
+            native.make_shard(loader.file.num_samples, 0, 1))[:batch]
+        ref_x, ref_y = (f.decode(order, 224, True, seed=0) if has_jpeg else f.read_raw(order))
+        tasks, _ = loader.epoch_tasks()
+        host = next(tasks)()
+        u8, y8 = DeviceTransfer("cuda").copy([host], stacked=False)
+        loader.epoch = 0
+        stream = iter(loader)
+        x, y = next(stream)
+        stream.close()
+        ref_norm = normalize_uint8(torch.from_numpy(ref_x), IMAGENET_MEAN, IMAGENET_STD)
+        norm_err = float((x.cpu() - ref_norm).abs().max())
+        same_u8 = bool(torch.equal(u8.cpu(), torch.from_numpy(ref_x)))
+        same_y = bool(torch.equal(y8.cpu(), torch.from_numpy(ref_y))
+                      and torch.equal(y.cpu(), torch.from_numpy(ref_y).long()))
+        same_hash = int(_u8_hash(x)) == int(_u8_hash(ref_norm.cuda()))
+        log(f"imagenet loader vs reader: epoch 0's first batch ({batch} samples) as uint8 on "
+            f"the card equal to TpkFile's CPU read of the same indices: {same_u8}; labels: "
+            f"{same_y}; normalised max |card - CPU| {norm_err:.2e} (limit "
+            f"{IMAGENET_NORM_TOL:g}); uint8 recovered from it hashes alike: {same_hash}")
+        if not (same_u8 and same_y and same_hash) or norm_err > IMAGENET_NORM_TOL:
+            raise AssertionError("the loader's device batch differs from the reader's")
+        del loader, x, y, u8, y8
+
+        # ---- the main path: imagenet_imp_tpk, chunked as shipped, counts at 0 before
+        rec = _FeedRecorder()
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rc, expt, wall = _run_config("imagenet_imp_tpk",
+                                     _imagenet_overrides(train, val, batch, f"{base}/tpk"), rec)
+        launches = {c.__name__: c.launches for c in counters}
+        # ---- end of the main path
+        run_peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"imagenet tpk: run_experiment_torch main --config-name=imagenet_imp_tpk -> {rc} "
+            f"in {wall:.1f} s at batch {batch} (chunks of "
+            f"{cfg.dataset_params.scan_chunk_steps}); K1/K2/K3 launches {launches} (the "
+            "ResNet path runs none of them)")
+        if rc != 0 or any(launches.values()):
+            raise AssertionError(f"imagenet_imp_tpk returned {rc}, launches {launches}")
+        _check_imp_run("imagenet tpk", expt, rec, IMAGENET_STEPS)
+        del rec.harness
+
+        # ---- chunked against unchunked, and against synthetic data
+        flat = _FeedRecorder(profiled=False)
+        rc1, _, wall1 = _run_config("imagenet_imp_tpk", _imagenet_overrides(
+            train, val, batch, f"{base}/flat", ["dataset_params.scan_chunk_steps=1"]), flat)
+        del flat.harness
+        synth = _FeedRecorder()
+        rc2, _, wall2 = _run_config("imagenet_imp_tpk", _imagenet_overrides(
+            train, val, batch, f"{base}/synthetic", [
+                "dataset_params.dataloader_type=synthetic",
+                f"dataset_params.synthetic_num_train={IMAGENET_STEPS * batch}",
+                f"dataset_params.synthetic_num_test={n_val}"]), synth)
+        hashes = [int(h) for h in rec.hashes]
+        same = hashes == [int(h) for h in flat.hashes]
+        log(f"imagenet chunked vs unchunked: {len(hashes)} batches reached the step, each "
+            f"with the same uint8 images (device hashes) with scan_chunk_steps "
+            f"{cfg.dataset_params.scan_chunk_steps} and 1: {same}; "
+            f"{len(set(hashes))} distinct; runs -> {rc1} in {wall1:.1f} s (not profiled), "
+            f"synthetic -> {rc2} in {wall2:.1f} s")
+        if rc1 or rc2 or not same or len(hashes) != 2 * IMAGENET_STEPS:
+            raise AssertionError("chunked and unchunked epochs fed other batches")
+        for level, (a, b, s) in enumerate(zip(rec.epochs, flat.epochs, synth.epochs)):
+            wall_ms = a["epoch_seconds"] * 1e3
+            log(f"imagenet epoch L{level} (batch {batch}, {IMAGENET_STEPS} steps): fed "
+                f"{a['samples_per_sec']:.1f} img/s (tpk, chunks of "
+                f"{cfg.dataset_params.scan_chunk_steps}), {b['samples_per_sec']:.1f} "
+                f"(scan_chunk_steps 1), synthetic {s['samples_per_sec']:.1f} "
+                f"({a['samples_per_sec'] / s['samples_per_sec']:.3f}x); waits decode "
+                f"{a['decode_wait_s']:.3f} s, transfer {a['transfer_wait_s']:.3f} s, "
+                f"consumer {a['consumer_wait_s']:.3f} s of the epoch's {wall_ms / 1e3:.3f} s; "
+                f"H2D {a['h2d_ms'] / a['h2d_batches']:.3f} ms per batch ({a['h2d_batches']} "
+                f"batches copied, CUDA events); device busy {a['busy_ms']:.1f} ms, idle "
+                f"{max(0.0, 1 - a['busy_ms'] / wall_ms) * 100:.1f}% (synthetic "
+                f"{max(0.0, 1 - s['busy_ms'] / (s['epoch_seconds'] * 1e3)) * 100:.1f}%; "
+                f"torch.profiler); peak {a['peak_gb']:.2f} GB (synthetic "
+                f"{s['peak_gb']:.2f}) on {card}")
+
+        # ---- where a step's time goes (the synthetic run's harness and batch)
+        harness = synth.harness
+        step_batch = next(iter(harness.loaders.train_loader))
+
+        def step():
+            return harness._train_step(harness.state, step_batch)
+
+        step_ms = _call_ms(step, reps=3, warmup=1)
+        busy_ms, _, kernels = _device_busy_ms(step, reps=2, inference=False, top=None)
+        kinds = _kinds(kernels)
+        macs = _resnet_macs(harness.state.model, 224)
+        bound_ms = 3 * 2 * macs * batch / PEAK_FLOPS["bfloat16"] * 1e3
+        log(f"imagenet train step (ResNet-50, 224, batch {batch}, bf16, eager): {step_ms:.3f} ms "
+            f"(CUDA events, median of 3), device busy {busy_ms:.3f} ms (torch.profiler, 2 "
+            f"steps), FLOP bound {bound_ms:.3f} ms ({macs / 1e9:.4f} GMAC per image x 2 x 3 x "
+            f"{batch} at 989 TFLOP/s); by kind: {_kinds_line(kinds)}; peak of the run "
+            f"{run_peak:.2f} GB on {card}")
+        del synth.harness, harness, step_batch
+    log(f"imagenet phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"batch": batch}
+
+
 def main() -> int:
     import torch
 
@@ -2289,6 +2758,7 @@ def main() -> int:
     resnet_out = phase_resnet()
     phase_resume()
     cyclic_out = phase_cyclic()
+    phase_imagenet(card)
     compile_out = phase_compile(resnet_out, train_out)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s on {card}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,6 +1,6 @@
 """The port stands alone: no module of turboprune_tpu_torch, nor
 chip_smoke.py, ablate_flash_fwd.py, run_server_torch.py,
-run_experiment_torch.py or run_cyclic_training_experiment_torch.py imports JAX, flax, optax, orbax or the JAX package
+run_experiment_torch.py or run_cyclic_training_experiment_torch.py imports JAX, flax, optax, orbax, grain or the JAX package
 (not even its jax-free modules). Checked on the AST, so a lazy import
 inside a function counts too."""
 
@@ -10,7 +10,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "turboprune_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "grain", "turboprune_tpu")
 FILES = sorted((REPO / "turboprune_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py",
     REPO / "ablate_flash_fwd.py",

@@ -102,3 +102,40 @@ def seeded_variables(model, image, seed=0):
         return (x / np.sqrt(int(np.prod(s.shape[:-1])))).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def jpeg_blobs(n, sizes=((64, 48),), seed=0, quality=90):
+    """``n`` distinct JPEG files as bytes, encoded with Pillow from seeded
+    images: smooth colour fields (random low-resolution images upsampled
+    bilinearly) with a little noise, of (width, height) ``sizes`` taken in
+    turn (ImageNet-like sizes such as (500, 375) and (375, 500) take the
+    reader's DCT-scaled decode)."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    blobs = []
+    for i in range(n):
+        w, h = sizes[i % len(sizes)]
+        low = rng.integers(0, 256, size=(max(2, h // 16), max(2, w // 16), 3), dtype=np.uint8)
+        arr = np.asarray(Image.fromarray(low).resize((w, h), Image.BILINEAR), np.int16)
+        arr = np.clip(arr + rng.integers(-8, 9, size=arr.shape), 0, 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="JPEG", quality=quality)
+        blobs.append(buf.getvalue())
+    return blobs
+
+
+def write_image_folder(root, classes=("a", "b"), per_class=3, sizes=((64, 48),), seed=0):
+    """An ImageFolder split under ``root`` (``root/<class>/<i>.jpeg``) of
+    ``jpeg_blobs``; returns ``root``."""
+    from pathlib import Path
+
+    root = Path(root)
+    blobs = jpeg_blobs(len(classes) * per_class, sizes, seed)
+    for c, cls in enumerate(classes):
+        (root / cls).mkdir(parents=True, exist_ok=True)
+        for i in range(per_class):
+            (root / cls / f"{i}.jpeg").write_bytes(blobs[c * per_class + i])
+    return root

@@ -1,8 +1,14 @@
 """Input pipelines (port of ``turboprune_tpu/data/__init__.py``).
 
-``create_loaders`` builds the loader pair for a config on a device. The
-synthetic loaders and the device CIFAR loader (local files) are ported;
-grain and the native .tpk loader come with a later slice and raise here.
+``create_loaders`` builds the loader pair for a config on a device:
+
+  device    whole dataset on the device, whole-epoch augmentation (CIFAR)
+  tpk       the native loader: a memory-mapped packed file, multithreaded
+            C++ decode and crop (``csrc/tpkdata.cpp``), batches streamed to
+            the device by the prefetch engine (``native.py``, ``pipeline.py``)
+  synthetic deterministic generated data
+
+grain comes with a later slice and raises here.
 """
 
 from __future__ import annotations
@@ -12,11 +18,11 @@ from typing import Any
 import torch
 
 from .cifar import CifarLoaders, DeviceCifarLoader, cache_cifar_npz, load_cifar_arrays
+from .native import TpkImageLoader, TpkLoaders
 from .synthetic import SyntheticLoaders, synthetic_arrays
 
 NOT_YET_PORTED = {
     "grain": "ROADMAP.md queue A, item 14",
-    "tpk": "ROADMAP.md queue A, item 14",
 }
 
 
@@ -46,6 +52,21 @@ def create_loaders(cfg, device: str | torch.device = "cuda") -> Any:
             seed=cfg.experiment_params.seed,
             device=device,
         )
+    if dp.dataloader_type == "tpk":
+        return TpkLoaders(
+            data_root_dir=dp.data_root_dir,
+            total_batch_size=dp.total_batch_size,
+            num_classes=dp.num_classes,
+            image_size=dp.image_size,
+            seed=cfg.experiment_params.seed,
+            nthreads=dp.tpk_nthreads,
+            prefetch_depth=dp.prefetch_depth,
+            decode_workers=dp.decode_workers,
+            train_path=dp.tpk_train_path,
+            val_path=dp.tpk_val_path,
+            auto_pack=dp.tpk_auto_pack,
+            device=device,
+        )
     if dp.dataloader_type in NOT_YET_PORTED:
         raise NotImplementedError(
             f"dataloader_type={dp.dataloader_type!r} is not yet ported to "
@@ -59,6 +80,8 @@ __all__ = [
     "CifarLoaders",
     "DeviceCifarLoader",
     "SyntheticLoaders",
+    "TpkImageLoader",
+    "TpkLoaders",
     "cache_cifar_npz",
     "create_loaders",
     "load_cifar_arrays",

@@ -27,8 +27,11 @@ trace.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import time
 from pathlib import Path
+from typing import Iterator
 
 import torch
 
@@ -62,6 +65,9 @@ from ..utils import (
     model_state_dict,
     resolve_device,
 )
+
+# A streaming loader's prefetch-engine stage times, in each epoch's row.
+PIPELINE_STAGES = ("decode_wait_s", "transfer_wait_s", "consumer_wait_s")
 
 PRECISION_DTYPES = {
     "bfloat16": torch.bfloat16,
@@ -168,15 +174,45 @@ class PruningHarness:
             self.state.optimizer.load_state_dict(self.ckpts.load_optimizer(OPTIMIZER_REWIND))
 
     # --------------------------------------------------------------- loops
+    def train_batches(self) -> Iterator[tuple]:
+        """The epoch's train batches, at most ``steps_per_epoch``. A
+        streaming loader with ``iter_chunks`` (.tpk) takes the chunked path
+        when ``dataset_params.scan_chunk_steps`` K > 1: the prefetch engine
+        moves K batches to the device as one [K, B, ...] chunk and the
+        steps run over its slices (the JAX package runs a chunk as one
+        scanned program; here each slice is one step, eager or compiled);
+        a tail of fewer than K batches comes per batch. Either path feeds
+        the step the same batches in the same order."""
+        loader = self.loaders.train_loader
+        chunk = self.cfg.dataset_params.scan_chunk_steps
+        if chunk > 1 and hasattr(loader, "iter_chunks"):
+            stream = items = loader.iter_chunks(chunk, max_batches=self.steps_per_epoch)
+        else:
+            stream = iter(loader)
+            items = itertools.islice(stream, self.steps_per_epoch)
+        try:
+            for images, labels in items:
+                if images.dim() == 5:
+                    yield from zip(images.unbind(0), labels.unbind(0))
+                else:
+                    yield images, labels
+        finally:
+            # Stops a streaming loader's engine now, not when the iterator
+            # is collected, so its stage times are final for this epoch.
+            close = getattr(stream, "close", None)
+            if close is not None:
+                close()
+
     def train_epoch(self) -> dict:
         """One pass over the train loader, at most ``steps_per_epoch``
-        steps. Returns host-side epoch means."""
+        steps. Returns host-side epoch means, and a streaming loader's
+        pipeline stage times (``decode_wait_s``, ``transfer_wait_s``,
+        ``consumer_wait_s``)."""
         sums = None
         t0 = time.perf_counter()
-        for i, batch in enumerate(self.loaders.train_loader):
-            if i >= self.steps_per_epoch:
-                break
-            sums = add_sums(sums, self._train_step(self.state, batch))
+        with contextlib.closing(self.train_batches()) as batches:
+            for batch in batches:
+                sums = add_sums(sums, self._train_step(self.state, batch))
         if sums is None:
             raise RuntimeError(
                 "train loader yielded no batches — dataset smaller than "
@@ -185,12 +221,16 @@ class PruningHarness:
         sums = {k: float(v) for k, v in sums.items()}  # waits for the device
         wall = time.perf_counter() - t0
         n = sums["count"]
-        return {
+        out = {
             "train_loss": sums["loss_sum"] / n,
             "train_acc": 100.0 * sums["correct"] / n,
             "epoch_seconds": wall,
             "samples_per_sec": n / wall,
         }
+        stats = getattr(self.loaders.train_loader, "last_pipeline_stats", None)
+        if stats is not None:
+            out.update({k: stats[k] for k in PIPELINE_STAGES})
+        return out
 
     def evaluate(self) -> dict:
         """Full test pass; padded rows (label -1) count nowhere."""
@@ -332,6 +372,8 @@ class PruningHarness:
             f"test {row['test_loss']:.4f}/{row['test_acc']:5.2f}% "
             f"(best {row['max_test_acc']:5.2f}%) "
             f"sparsity {row['sparsity']:5.2f}% "
-            f"{row['samples_per_sec']:,.0f} img/s",
+            f"{row['samples_per_sec']:,.0f} img/s"
+            + ("" if PIPELINE_STAGES[0] not in row else
+               " (waits s: " + ", ".join(f"{k[:-7]} {row[k]:.3f}" for k in PIPELINE_STAGES) + ")"),
             flush=True,
         )
