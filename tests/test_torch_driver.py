@@ -106,7 +106,7 @@ def test_cuda_is_the_default_and_raises_without_it(tmp_path):
     [
         "experiment_params.profile_dir={tmp}/profile",
         "experiment_params.compact_train=true",
-        "dataset_params.dataloader_type=grain",
+        "model_params.pretrained_path={tmp}/deit.npz",
         "optimizer_params.optimizer_name=ScheduleFreeSGD",
     ],
 )

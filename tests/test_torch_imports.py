@@ -1,5 +1,5 @@
 """The port stands alone: no module of turboprune_tpu_torch, nor
-chip_smoke.py, ablate_flash_fwd.py, run_server_torch.py,
+chip_smoke.py, ablate_flash_fwd.py, card_cpu_noise.py, run_server_torch.py,
 run_experiment_torch.py or run_cyclic_training_experiment_torch.py imports JAX, flax, optax, orbax, grain or the JAX package
 (not even its jax-free modules). Checked on the AST, so a lazy import
 inside a function counts too."""
@@ -14,6 +14,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "grain", "turboprune_tpu
 FILES = sorted((REPO / "turboprune_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py",
     REPO / "ablate_flash_fwd.py",
+    REPO / "card_cpu_noise.py",
     REPO / "run_server_torch.py",
     REPO / "run_experiment_torch.py",
     REPO / "run_cyclic_training_experiment_torch.py",

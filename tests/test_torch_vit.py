@@ -61,10 +61,11 @@ def test_registry_and_constructor_contracts():
         "deit_tiny_patch16_224", 10, attention_impl="ring", image_size=32
     ).attention_impl == "dense"
     assert "resnet18" not in NOT_YET_PORTED  # the ResNets are ported
-    for name in ("vgg11", "vgg16_bn", "densenet121"):
-        assert name in NOT_YET_PORTED
-        with pytest.raises(ValueError, match="not yet ported"):
-            create_model(name, 10)
+    for name in ("vgg11", "vgg16_bn", "densenet121"):  # ported since
+        assert name not in NOT_YET_PORTED
+        with torch.device("meta"):
+            assert create_model(name, 10).num_classes == 10
+    assert NOT_YET_PORTED == ()
     with pytest.raises(NotImplementedError, match="sparse-execution slice"):
         tvit.VisionTransformer(**TINY, image_size=32, width_overrides={"a": 1})
     with pytest.raises(NotImplementedError, match="sparse-execution slice"):

@@ -14,6 +14,11 @@ named after the flax paths (models/vit.py), so the mapping is mechanical:
 - BatchNorm ``batch_stats`` ``{mean, var}`` -> the buffers ``mean``/``var``
   of ``models/resnet.py::FlaxBatchNorm2d``.
 
+The CNNs map the same way: DenseNet's nested paths
+(``denseblock1_layer1/norm1``, ``transition1/conv``) become dotted module
+names, and VGG's ``fc0`` kernel needs no permutation of its rows, because
+the port's VGG flattens its activations in flax's (H, W, C) order.
+
 Masks take the same transforms as their kernels and are keyed by the flax
 path name (``block0/attn/query/kernel``). Every transform is a transpose or
 a reshape, so a round trip is bit-exact.

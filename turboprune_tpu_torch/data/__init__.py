@@ -6,9 +6,10 @@
   tpk       the native loader: a memory-mapped packed file, multithreaded
             C++ decode and crop (``csrc/tpkdata.cpp``), batches streamed to
             the device by the prefetch engine (``native.py``, ``pipeline.py``)
+  grain     an ImageFolder of JPEGs decoded by Pillow in DataLoader worker
+            processes, in the order and with the crops of the JAX
+            package's grain loader, without grain (``imagenet.py``)
   synthetic deterministic generated data
-
-grain comes with a later slice and raises here.
 """
 
 from __future__ import annotations
@@ -18,12 +19,9 @@ from typing import Any
 import torch
 
 from .cifar import CifarLoaders, DeviceCifarLoader, cache_cifar_npz, load_cifar_arrays
+from .imagenet import GrainImageLoader, ImageFolderLoader, ImageNetLoaders
 from .native import TpkImageLoader, TpkLoaders
 from .synthetic import SyntheticLoaders, synthetic_arrays
-
-NOT_YET_PORTED = {
-    "grain": "ROADMAP.md queue A, item 14",
-}
 
 
 def create_loaders(cfg, device: str | torch.device = "cuda") -> Any:
@@ -67,11 +65,15 @@ def create_loaders(cfg, device: str | torch.device = "cuda") -> Any:
             auto_pack=dp.tpk_auto_pack,
             device=device,
         )
-    if dp.dataloader_type in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"dataloader_type={dp.dataloader_type!r} is not yet ported to "
-            f"turboprune_tpu_torch ({NOT_YET_PORTED[dp.dataloader_type]}); "
-            "use dataloader_type=synthetic"
+    if dp.dataloader_type == "grain":
+        return ImageNetLoaders(
+            data_root_dir=dp.data_root_dir,
+            total_batch_size=dp.total_batch_size,
+            num_workers=dp.num_workers,
+            seed=cfg.experiment_params.seed,
+            image_size=dp.image_size,
+            prefetch_depth=dp.prefetch_depth,
+            device=device,
         )
     raise ValueError(f"Unknown dataloader_type: {dp.dataloader_type}")
 
@@ -79,6 +81,9 @@ def create_loaders(cfg, device: str | torch.device = "cuda") -> Any:
 __all__ = [
     "CifarLoaders",
     "DeviceCifarLoader",
+    "GrainImageLoader",
+    "ImageFolderLoader",
+    "ImageNetLoaders",
     "SyntheticLoaders",
     "TpkImageLoader",
     "TpkLoaders",

@@ -321,7 +321,7 @@ def make_shard(n: int, pid: int, nproc: int) -> np.ndarray:
     return np.arange(pid, n, nproc, dtype=np.int64)
 
 
-def process_count() -> int:
+def process_count(what: str = "the .tpk loader") -> int:
     """1: the port runs as one process. A launch with a torch.distributed
     world of more than one process raises (ROADMAP.md queue A, item 13)."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
@@ -329,7 +329,7 @@ def process_count() -> int:
         world = torch.distributed.get_world_size()
     if world > 1:
         raise NotImplementedError(
-            f"the .tpk loader in a world of {world} processes is not yet ported to "
+            f"{what} in a world of {world} processes is not yet ported to "
             "turboprune_tpu_torch (ROADMAP.md queue A, item 13)")
     return 1
 

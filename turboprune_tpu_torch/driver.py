@@ -106,20 +106,27 @@ def run(
     pp = cfg.pruning_params
     densities = generate_densities(pp.prune_method, pp.target_sparsity, pp.prune_rate)
     summaries = []
-    for level in range(start_level, len(densities)):
-        density = densities[level]
-        if level == 0:
-            if pp.training_type == "at_init":
-                # PaI: prune the untrained network before any training;
-                # model_init is saved after, so it carries the pruned masks.
+    try:
+        for level in range(start_level, len(densities)):
+            density = densities[level]
+            if level == 0:
+                if pp.training_type == "at_init":
+                    # PaI: prune the untrained network before any training;
+                    # model_init is saved after, so it carries the pruned masks.
+                    prune_level(harness, density, level)
+            else:
+                restore_level(harness, level - 1)
                 prune_level(harness, density, level)
-        else:
-            restore_level(harness, level - 1)
-            prune_level(harness, density, level)
-        summary = harness.train_one_level(ep.epochs_per_level, level)
-        harness.ckpts.save_level(level, harness.state.model_tree())
-        summary["achieved_density"] = masking.overall_density(harness.state.masks)
-        summaries.append(summary)
+            summary = harness.train_one_level(ep.epochs_per_level, level)
+            harness.ckpts.save_level(level, harness.state.model_tree())
+            summary["achieved_density"] = masking.overall_density(harness.state.masks)
+            summaries.append(summary)
+    finally:
+        # The loaders' worker processes (the ImageFolder loader's) stop now,
+        # also when a level raises, not whenever the harness is collected.
+        close = getattr(harness.loaders, "close", None)
+        if close is not None:
+            close()
     if ep.checkpoint_every_epochs:
         # The run is complete: a slot left behind would be restored by a
         # later resume of this dir at its level.

@@ -40,6 +40,7 @@ from ..data import create_loaders
 from ..models import create_model
 from ..ops import masking
 from ..train import (
+    DropoutNoise,
     TrainState,
     add_sums,
     compile_forward,
@@ -140,6 +141,9 @@ class PruningHarness:
             self.steps_per_epoch = min(self.steps_per_epoch, ep.max_steps_per_epoch)
         self.state: TrainState = create_train_state(self.model, self._make_optimizer)
         self._train_step = None
+        # Dropout's uniforms: one generator on the device, reseeded from
+        # (seed, step) at every step (train.DropoutNoise).
+        self.dropout_noise = DropoutNoise(self.device, ep.seed)
         # The step's model work, compiled once for every level: params
         # and statistics are read from their storage, masks and batches
         # are graph inputs (train.compile_forward).
@@ -161,7 +165,7 @@ class PruningHarness:
             steps_per_epoch=self.steps_per_epoch,
             warmup_fraction=op.warmup_fraction,
         )
-        self._train_step = make_train_step(schedule, self._train_forward)
+        self._train_step = make_train_step(schedule, self._train_forward, self.dropout_noise)
         self.state = reset_optimizer(self.state, self._make_optimizer)
 
     def maybe_rewind_optimizer(self, level: int) -> None:
@@ -267,14 +271,7 @@ class PruningHarness:
             max_test_acc = self._run_epoch(row, max_test_acc, snapshot_ok=level == 0)
             # The level's last epoch is saved as model_level_{level}.
             if ckpt_every and (epoch + 1) % ckpt_every == 0 and epoch + 1 < epochs_per_level:
-                self.ckpts.save_mid_level(level, epoch, self.state, meta={
-                    "max_test_acc": max_test_acc,
-                    "config_hash": self.config_hash,
-                    "run_id": self.run_id,
-                    "train_loader_epoch": getattr(self.loaders.train_loader, "epoch", 0),
-                    # Plain float and int rows: the level CSV survives.
-                    "level_rows": self.metrics.level_rows,
-                })
+                self._save_mid_level(level, epoch, max_test_acc)
 
         return self.metrics.finish_level(
             level,
@@ -283,6 +280,26 @@ class PruningHarness:
                 "final_sparsity": masking.overall_sparsity(self.state.masks),
             },
         )
+
+    def _save_mid_level(self, level: int, epoch: int, max_test_acc: float) -> None:
+        """The slot after ``epoch`` of ``level``; a stream-position loader's
+        state goes beside it, tagged for this save."""
+        train_loader = self.loaders.train_loader
+        meta = {
+            "max_test_acc": max_test_acc,
+            "config_hash": self.config_hash,
+            "run_id": self.run_id,
+            "train_loader_epoch": getattr(train_loader, "epoch", 0),
+            # Plain float and int rows: the level CSV survives.
+            "level_rows": self.metrics.level_rows,
+        }
+        get_stream = getattr(train_loader, "get_stream_state", None)
+        if get_stream is not None:
+            # One process: its blob is file 0 (the JAX package writes one
+            # per host).
+            self.ckpts.save_mid_level_stream(level, epoch, get_stream(), 0)
+            meta["train_loader_stream_hosts"] = 1
+        self.ckpts.save_mid_level(level, epoch, self.state, meta=meta)
 
     def _run_epoch(self, row: dict, max_test_acc: float, snapshot_ok: bool) -> float:
         """Train and evaluate one epoch, log ``row`` (which holds its level
@@ -336,7 +353,7 @@ class PruningHarness:
         # The rows before the preemption, so the level CSV and its best
         # test accuracy cover the whole level.
         self.metrics.level_rows = [dict(r) for r in mid.get("level_rows", [])]
-        self._restore_train_stream(mid)
+        self._restore_train_stream(mid, level)
         start_epoch = mid["epoch"] + 1
         print(
             f"[resume] mid-level checkpoint: re-entering level {level} at "
@@ -345,23 +362,48 @@ class PruningHarness:
         )
         return start_epoch, mid.get("max_test_acc", 0.0)
 
-    def _restore_train_stream(self, mid: dict) -> None:
-        """The train loader's data order at the slot. A loader whose epoch
-        counter is its whole state (augmentation and shuffle drawn from
-        (seed, epoch)) gets the counter back, which is exact; any other
-        takes a fresh pass, with a warning. (The stream-position loaders
-        of the JAX package are not ported yet: ROADMAP.md queue A, item
-        14.)"""
+    def _restore_train_stream(self, mid: dict, level: int) -> str:
+        """The train loader's data order at the slot, in three tiers; returns
+        the tier taken ("stream", "epoch" or "fresh"):
+
+        1. a stream-position loader (``set_stream_state``) takes its blob
+           when the slot names one, the blob is tagged for this save and
+           the loader accepts it (exact);
+        2. a loader whose epoch counter is its whole state
+           (``resumable_epochs``, true unless the loader says otherwise:
+           synthetic, CIFAR, .tpk) gets the counter back (exact);
+        3. anything else takes a fresh pass, with a warning."""
         train_loader = self.loaders.train_loader
-        if hasattr(train_loader, "epoch"):
-            train_loader.epoch = mid["train_loader_epoch"]
-            return
+        epoch = mid["train_loader_epoch"]
+        if mid.get("train_loader_stream_hosts") and hasattr(train_loader, "set_stream_state"):
+            blob = None
+            if mid["train_loader_stream_hosts"] == 1:
+                blob = self.ckpts.load_mid_level_stream(level, mid["epoch"], 0)
+            if blob is None:
+                print(
+                    "[resume] stream-state blob missing or from another save or "
+                    "process count; falling back to a fresh shuffle pass",
+                    flush=True,
+                )
+            else:
+                try:
+                    train_loader.set_stream_state(blob)
+                except ValueError as e:  # another loader's state
+                    print(f"[resume] stream state rejected ({e}); falling back "
+                          "to a fresh shuffle pass", flush=True)
+                else:
+                    train_loader.epoch = epoch
+                    return "stream"
+        elif getattr(train_loader, "resumable_epochs", True) and hasattr(train_loader, "epoch"):
+            train_loader.epoch = epoch
+            return "epoch"
         print(
             "[resume] WARNING: the resumed run sees a fresh shuffle pass — "
             "statistically equivalent, NOT bit-identical to an "
             "uninterrupted run",
             flush=True,
         )
+        return "fresh"
 
     def _log_console(self, row: dict) -> None:
         # Rows of the cyclic harness carry their cycle.

@@ -1,9 +1,6 @@
-"""Model registry (port of ``turboprune_tpu/models/__init__.py``).
-
-The DeiT and ResNet families are ported. VGG and DenseNet are listed so
-that asking for one says it is not yet ported (ROADMAP.md queue A, item
-12) instead of claiming the name is unknown.
-"""
+"""Model registry (port of ``turboprune_tpu/models/__init__.py``): every
+model of the JAX package's registry, the ResNets, DenseNets, VGGs and
+DeiTs."""
 
 from __future__ import annotations
 
@@ -12,8 +9,10 @@ from typing import Any, Callable
 import torch
 from torch import nn
 
-from . import resnet, vit
+from . import densenet, resnet, vgg, vit
+from .densenet import DenseNet
 from .resnet import ResNet
+from .vgg import VGG
 from .vit import VisionTransformer
 
 MODEL_REGISTRY: dict[str, Callable] = {
@@ -24,6 +23,16 @@ MODEL_REGISTRY: dict[str, Callable] = {
     "resnet152": resnet.resnet152,
     "wide_resnet50_2": resnet.wide_resnet50_2,
     "wide_resnet101_2": resnet.wide_resnet101_2,
+    "densenet121": densenet.densenet121,
+    "densenet169": densenet.densenet169,
+    "vgg11": vgg.vgg11,
+    "vgg11_bn": vgg.vgg11_bn,
+    "vgg13": vgg.vgg13,
+    "vgg13_bn": vgg.vgg13_bn,
+    "vgg16": vgg.vgg16,
+    "vgg16_bn": vgg.vgg16_bn,
+    "vgg19": vgg.vgg19,
+    "vgg19_bn": vgg.vgg19_bn,
     "deit_tiny_patch16_224": vit.deit_tiny_patch16_224,
     "deit_small_patch16_224": vit.deit_small_patch16_224,
     "deit_base_patch16_224": vit.deit_base_patch16_224,
@@ -34,11 +43,8 @@ MODEL_REGISTRY: dict[str, Callable] = {
     "deit_base_distilled_patch16_384": vit.deit_base_distilled_patch16_384,
 }
 
-NOT_YET_PORTED = (
-    "densenet121", "densenet169",
-    "vgg11", "vgg11_bn", "vgg13", "vgg13_bn", "vgg16", "vgg16_bn",
-    "vgg19", "vgg19_bn",
-)
+# Every model of the JAX package's registry is ported.
+NOT_YET_PORTED: tuple[str, ...] = ()
 
 
 def create_model(
@@ -55,12 +61,6 @@ def create_model(
     ``attention_impl`` and ``image_size`` are the DeiTs' (``image_size``
     fixes the patch grid, which flax infers from the first batch instead);
     a CNN takes neither and refuses an attention other than dense."""
-    if model_name in NOT_YET_PORTED:
-        raise ValueError(
-            f"model {model_name!r} is not yet ported to turboprune_tpu_torch "
-            "(VGG and DenseNet are ROADMAP.md queue A, item 12); ported: "
-            f"{sorted(MODEL_REGISTRY)}"
-        )
     if model_name not in MODEL_REGISTRY:
         raise ValueError(
             f"Model {model_name!r} not in registry: {sorted(MODEL_REGISTRY)}"
@@ -84,4 +84,12 @@ def create_model(
     )
 
 
-__all__ = ["MODEL_REGISTRY", "NOT_YET_PORTED", "ResNet", "VisionTransformer", "create_model"]
+__all__ = [
+    "MODEL_REGISTRY",
+    "NOT_YET_PORTED",
+    "VGG",
+    "DenseNet",
+    "ResNet",
+    "VisionTransformer",
+    "create_model",
+]

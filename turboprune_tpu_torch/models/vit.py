@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash import flash_attention
+from .dropout import dropout, forward_noise
 
 ATTENTION_IMPLS = ("dense", "ring", "flash")
 
@@ -132,11 +133,12 @@ class MlpBlock(nn.Module):
         super().__init__()
         self.fc1 = Dense(dim, hidden, dtype)
         self.fc2 = Dense(hidden, dim, dtype)
-        self.drop = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.drop(F.gelu(self.fc1(x), approximate="none"))
-        return self.drop(self.fc2(x))
+    def forward(self, x: torch.Tensor, noise: Optional[list] = None) -> torch.Tensor:
+        hidden_noise, out_noise = noise if noise else (None, None)
+        x = dropout(F.gelu(self.fc1(x), approximate="none"), self.dropout_rate, hidden_noise)
+        return dropout(self.fc2(x), self.dropout_rate, out_noise)
 
 
 class EncoderBlock(nn.Module):
@@ -157,9 +159,9 @@ class EncoderBlock(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dropout_rate, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, noise: Optional[list] = None) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        return x + self.mlp(self.norm2(x), noise)
 
 
 class VisionTransformer(nn.Module):
@@ -208,7 +210,6 @@ class VisionTransformer(nn.Module):
         if distilled:
             self.dist_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, num_patches + extra, embed_dim))
-        self.drop = nn.Dropout(dropout_rate)
         self.depth = depth
         for i in range(depth):
             self.add_module(
@@ -250,23 +251,28 @@ class VisionTransformer(nn.Module):
                 module.bias.zero_()
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.dropout_rate > 0:
-            # nn.Dropout would draw from torch's global generator; the JAX
-            # model draws from the step's explicit key. No conf/ sets a rate.
-            raise NotImplementedError(
-                f"dropout_rate={self.dropout_rate} in training needs an explicit "
-                "generator per step, not yet ported (ROADMAP.md queue A, item 3)"
-            )
+    def dropout_shapes(self, n: int) -> list[tuple[int, ...]]:
+        """Shapes of the uniforms a train forward of ``n`` images takes, in
+        the order it uses them (after the position embedding, then each
+        block's MLP hidden and output); empty when the rate is 0."""
+        if self.dropout_rate == 0.0:
+            return []
+        s, d = self.pos_embed.shape[1], self.embed_dim
+        hidden = self.block0.mlp.fc1.out_features
+        return [(n, s, d)] + [(n, s, hidden), (n, s, d)] * self.depth
+
+    def forward(self, x: torch.Tensor, noise: Optional[list] = None) -> torch.Tensor:
+        noise = forward_noise(self, noise)
         n = x.shape[0]
         x = self.patch_embed(x)
         tokens = [self.cls_token.to(self.dtype).expand(n, -1, -1)]
         if self.distilled:
             tokens.append(self.dist_token.to(self.dtype).expand(n, -1, -1))
         x = torch.cat(tokens + [x], dim=1)
-        x = self.drop(x + self.pos_embed.to(self.dtype))
-        for block in self.blocks():
-            x = block(x)
+        x = dropout(x + self.pos_embed.to(self.dtype), self.dropout_rate,
+                    noise[0] if noise else None)
+        for i, block in enumerate(self.blocks()):
+            x = block(x, noise[1 + 2 * i:3 + 2 * i] if noise else None)
         x = self.norm(x).float()
         if not self.distilled:
             return self.head(x[:, 0])

@@ -44,9 +44,10 @@ def prune_the_model(
     batch: Optional[tuple] = None,
 ) -> Masks:
     """Dispatch a pruning criterion on ``model``'s current weights; returns
-    the new masks. The random criteria draw from ``generator``; ``batch``
-    (images, labels) is required for snip (real data) and synflow (the
-    shape and dtype of its all-ones input)."""
+    the new masks. The random criteria draw from ``generator``, and so
+    does the dropout of snip's and synflow's forward; ``batch`` (images,
+    labels) is required for snip (real data) and synflow (the shape and
+    dtype of its all-ones input)."""
     if method == "just dont":
         return masks
     if method == "mag":
@@ -59,8 +60,8 @@ def prune_the_model(
         if batch is None:
             raise ValueError(f"{method} pruning requires a data batch")
         if method == "snip":
-            return prune_snip(model, masks, density, batch)
-        return prune_synflow(model, masks, density, batch[0])
+            return prune_snip(model, masks, density, batch, generator)
+        return prune_synflow(model, masks, density, batch[0], generator)
     if method in NOT_YET_PORTED:
         raise NotImplementedError(
             f"pruning method {method!r} is not yet ported to "

@@ -11,18 +11,21 @@ which weights they keep.
 SNIP and SynFlow differentiate a train-mode forward: BatchNorm normalises
 with the scoring batch's statistics. The JAX package drops the statistics
 that forward updates; here the forward is handed copies of the BatchNorm
-buffers, so the model's own stay bit for bit as they were.
+buffers, so the model's own stay bit for bit as they were. A model with
+dropout (VGG) applies it in that forward, as the JAX package's does, with
+uniforms from the criterion's generator (``models/dropout.py``).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from ..models.dropout import draw_dropout_noise
 from ..ops.masking import (
     Masks,
     apply_masks,
@@ -91,19 +94,22 @@ def _scoring_grads(
     masks: Masks,
     images: torch.Tensor,
     loss_fn,
+    generator: Optional[torch.Generator] = None,
 ) -> dict[str, torch.Tensor]:
     """Gradients of ``loss_fn(logits)`` with respect to the (raw) kernels
     of ``params``, from a train-mode forward of ``model`` on ``params``
     with ``w * m`` at every masked weight and on ``buffers``, copies of
     the model's own: the BatchNorm statistics the forward updates are
-    thrown away."""
+    thrown away. Dropout draws its uniforms from ``generator``."""
     leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    noise = None if generator is None else draw_dropout_noise(model, images.shape[0], generator)
+    args = (images,) if noise is None else (images, noise)
     was_training = model.training
     model.train()
     try:
         with torch.enable_grad():
             logits = functional_call(
-                model, {**apply_masks(leaves, masks), **buffers}, (images,))
+                model, {**apply_masks(leaves, masks), **buffers}, args)
             keys = [state_key(path) for path in masks]
             grads = torch.autograd.grad(loss_fn(logits), [leaves[k] for k in keys])
     finally:
@@ -111,7 +117,8 @@ def _scoring_grads(
     return dict(zip(keys, grads))
 
 
-def snip_scores(model: nn.Module, masks: Masks, batch: tuple) -> Masks:
+def snip_scores(model: nn.Module, masks: Masks, batch: tuple,
+                generator: Optional[torch.Generator] = None) -> Masks:
     """SNIP saliency |dL/dw * w * m| on ONE batch (mean cross entropy in
     fp32). The gradient is taken with respect to the raw weights, so it
     already carries the mask factor."""
@@ -122,6 +129,7 @@ def snip_scores(model: nn.Module, masks: Masks, batch: tuple) -> Masks:
         model, params, buffers, masks, images,
         lambda logits: F.cross_entropy(logits.float(), labels, reduction="sum")
         / logits.shape[0],
+        generator,
     )
     scores = {}
     for path, m in masks.items():
@@ -130,12 +138,14 @@ def snip_scores(model: nn.Module, masks: Masks, batch: tuple) -> Masks:
     return scores
 
 
-def prune_snip(model: nn.Module, masks: Masks, density: float, batch: tuple) -> Masks:
+def prune_snip(model: nn.Module, masks: Masks, density: float, batch: tuple,
+               generator: Optional[torch.Generator] = None) -> Masks:
     """SNIP: keep the top ``density`` of ``snip_scores``, globally."""
-    return global_threshold_mask(snip_scores(model, masks, batch), masks, density)
+    return global_threshold_mask(snip_scores(model, masks, batch, generator), masks, density)
 
 
-def synflow_scores(model: nn.Module, masks: Masks, ones_like: torch.Tensor) -> Masks:
+def synflow_scores(model: nn.Module, masks: Masks, ones_like: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> Masks:
     """SynFlow saliency: R = sum(f_|theta|(1)) on an all-ones input of one
     image (shaped and typed as one row of ``ones_like``); score
     m * |dR/dw * |w|| in fp32. Every variable is taken by its absolute
@@ -146,7 +156,7 @@ def synflow_scores(model: nn.Module, masks: Masks, ones_like: torch.Tensor) -> M
     ones = torch.ones((1,) + tuple(ones_like.shape[1:]), dtype=ones_like.dtype,
                       device=ones_like.device)
     grads = _scoring_grads(model, abs_params, abs_buffers, masks, ones,
-                           lambda logits: logits.sum())
+                           lambda logits: logits.sum(), generator)
     scores = {}
     for path, m in masks.items():
         g = grads[state_key(path)].float()
@@ -155,7 +165,9 @@ def synflow_scores(model: nn.Module, masks: Masks, ones_like: torch.Tensor) -> M
 
 
 def prune_synflow(
-    model: nn.Module, masks: Masks, density: float, ones_like: torch.Tensor
+    model: nn.Module, masks: Masks, density: float, ones_like: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
 ) -> Masks:
     """SynFlow: keep the top ``density`` of ``synflow_scores``, globally."""
-    return global_threshold_mask(synflow_scores(model, masks, ones_like), masks, density)
+    return global_threshold_mask(
+        synflow_scores(model, masks, ones_like, generator), masks, density)

@@ -4,6 +4,7 @@ from .optim import create_optimizer, set_lr
 from .schedules import create_schedule
 from .state import TrainState, create_train_state, reset_optimizer
 from .steps import (
+    DropoutNoise,
     add_sums,
     compile_forward,
     cross_entropy_sum,
@@ -23,6 +24,7 @@ __all__ = [
     "set_lr",
     "create_schedule",
     "make_train_step",
+    "DropoutNoise",
     "eval_step",
     "train_forward",
     "eval_forward",

@@ -20,6 +20,13 @@ stays eager either way: the backward call, ``optimizer.step()`` (foreach
 SGD or AdamW), ``set_lr`` (a Python float that must not become a graph
 constant) and the step counter.
 
+Dropout (VGG's classifier, a ViT with a rate) draws from no global
+generator: the harness owns a ``DropoutNoise`` (one ``torch.Generator``
+on the device), which each train step reseeds from (seed, step), the
+counterpart of the JAX step's ``fold_in(state.rng, state.step)``, and
+draws the step's uniforms from eagerly; the forward takes them as a tensor
+argument (``models/dropout.py``), in the eager and the compiled step alike.
+
 Metrics are SUMS (``loss_sum``, ``correct``, ``count``) kept on the device;
 the harness adds them up over an epoch (``add_sums``, into tensors no graph
 owns) and reads them once at its end.
@@ -27,6 +34,7 @@ owns) and reads them once at its end.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Callable, Optional
 
 import torch
@@ -34,12 +42,14 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from ..models.dropout import draw_dropout_noise, dropout_shapes
 from ..ops.masking import Masks, apply_masks
 from .optim import set_lr
 from .state import TrainState
 
 Batch = tuple[torch.Tensor, torch.Tensor]  # (images NHWC, integer labels)
-Forward = Callable[[nn.Module, Masks, torch.Tensor, torch.Tensor], dict]
+Forward = Callable[..., dict]
+Noise = Optional[list[torch.Tensor]]  # a train forward's dropout uniforms
 
 
 def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -47,18 +57,21 @@ def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tenso
     return F.cross_entropy(logits.float(), labels, reduction="sum")
 
 
-def masked_forward(model: nn.Module, masks: Masks, images: torch.Tensor) -> torch.Tensor:
+def masked_forward(model: nn.Module, masks: Masks, images: torch.Tensor,
+                   noise: Noise = None) -> torch.Tensor:
     """Logits of ``model`` with ``w * m`` in place of every masked weight;
-    differentiable in the raw params."""
-    return functional_call(model, apply_masks(dict(model.named_parameters()), masks), (images,))
+    differentiable in the raw params. ``noise``: the dropout uniforms of a
+    train forward (None: the model has no dropout, or evaluates)."""
+    args = (images,) if noise is None else (images, noise)
+    return functional_call(model, apply_masks(dict(model.named_parameters()), masks), args)
 
 
 def train_forward(model: nn.Module, masks: Masks, images: torch.Tensor,
-                  labels: torch.Tensor) -> dict:
+                  labels: torch.Tensor, noise: Noise = None) -> dict:
     """A train step's model work: ``loss`` (the batch mean, to take the
     backward of), the ``logits`` and the metric sums. The count is a fill
     on the device, not a copy from the host."""
-    logits = masked_forward(model, masks, images)
+    logits = masked_forward(model, masks, images, noise)
     loss_sum = cross_entropy_sum(logits, labels)
     n = labels.shape[0]
     return {
@@ -126,13 +139,38 @@ def mark_buffers_static(model: nn.Module) -> None:
         torch._dynamo.mark_static_address(buf, guard=False)
 
 
+class DropoutNoise:
+    """A train step's dropout uniforms from one generator on ``device``,
+    reseeded each step from (``seed``, step) by a hash: reproducible, and
+    independent of anything else drawn."""
+
+    def __init__(self, device: torch.device, seed: int):
+        self.generator = torch.Generator(device=device)
+        self.seed = seed
+
+    def step_seed(self, step: int) -> int:
+        digest = hashlib.sha256(repr((self.seed, step, "dropout")).encode()).digest()
+        return int.from_bytes(digest[:8], "little") & ((1 << 63) - 1)
+
+    def __call__(self, model: nn.Module, n: int, step: int) -> Noise:
+        """The uniforms of ``model``'s train forward of ``n`` images at
+        ``step``; None (and nothing drawn) for a model without dropout."""
+        if not dropout_shapes(model, n):
+            return None
+        self.generator.manual_seed(self.step_seed(step))
+        return draw_dropout_noise(model, n, self.generator)
+
+
 def make_train_step(
     schedule: Callable[[int], float],
     forward: Forward = train_forward,
+    dropout_noise: Optional[DropoutNoise] = None,
 ) -> Callable[[TrainState, Batch], dict]:
     """The train step: updates ``state`` in place (params, optimizer, step)
     and returns the metric sums. ``schedule`` sets the lr from the step;
-    ``forward`` is ``train_forward`` or its compiled version."""
+    ``forward`` is ``train_forward`` or its compiled version;
+    ``dropout_noise`` draws the step's dropout uniforms (a model with
+    dropout refuses to train without them)."""
 
     def train_step(state: TrainState, batch: Batch) -> dict:
         images, labels = batch
@@ -141,7 +179,10 @@ def make_train_step(
         # Before the forward: a compiled step's previous gradients live in
         # its CUDA-graph memory, which the next replay reuses.
         state.optimizer.zero_grad(set_to_none=True)
-        out = forward(state.model, state.masks, images, labels)
+        noise = None
+        if dropout_noise is not None:
+            noise = dropout_noise(state.model, images.shape[0], state.step)
+        out = forward(state.model, state.masks, images, labels, noise)
         del out["logits"]
         out.pop("loss").backward()
         state.optimizer.step()

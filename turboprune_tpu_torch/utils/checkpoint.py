@@ -10,6 +10,8 @@ Layout under an experiment dir, as in the JAX package:
   checkpoints/model_level_{L}     end-of-level weights (next level's input)
   checkpoints/mid_level           the full train state at an epoch inside a
                                   level, and its header mid_level_meta.json
+  checkpoints/mid_level_stream_P  process P's train-stream position at that
+                                  save (stream-position loaders)
 
 A model checkpoint is the tree ``{"params": {name: parameter}, "masks":
 {flax path: bool tensor}, "batch_stats": {name: buffer}}`` (the BatchNorm
@@ -244,12 +246,41 @@ class ExperimentCheckpoints:
             return None
         return restored
 
+    # A stream-position loader's state (the ImageFolder loader) goes in a
+    # file of its own per process, prefixed by an 8-byte (level, epoch)
+    # tag: a preemption between the state's save and the stream's write
+    # cannot pair a stale stream with a newer state (the tag disagrees and
+    # the loader takes a fresh pass instead).
+
+    def _mid_level_stream_path(self, pid: int) -> Path:
+        return self.checkpoints_dir / f"mid_level_stream_{pid}"
+
+    def save_mid_level_stream(self, level: int, epoch: int, blob: bytes, pid: int) -> None:
+        tag = (level * 1_000_000 + epoch).to_bytes(8, "big")
+        p = self._mid_level_stream_path(pid)
+        tmp = p.with_suffix(".tmp")
+        tmp.write_bytes(tag + blob)
+        os.replace(tmp, p)
+
+    def load_mid_level_stream(self, level: int, epoch: int, pid: int) -> Optional[bytes]:
+        """The blob, or None when absent or tagged for another save."""
+        p = self._mid_level_stream_path(pid)
+        if not p.exists():
+            return None
+        raw = p.read_bytes()
+        if len(raw) < 8 or int.from_bytes(raw[:8], "big") != level * 1_000_000 + epoch:
+            return None
+        return raw[8:]
+
     def clear_mid_level(self) -> None:
-        """Drop the slot. Levels run in ascending order, so a slot of
-        another level belongs to an abandoned trajectory."""
+        """Drop the slot and its stream files. Levels run in ascending
+        order, so a slot of another level belongs to an abandoned
+        trajectory."""
         self._mid_level_meta_path().unlink(missing_ok=True)
         if self.mid_level_path().exists():
             shutil.rmtree(self.mid_level_path())
+        for p in self.checkpoints_dir.glob("mid_level_stream_*"):
+            p.unlink(missing_ok=True)
 
 
 def reset_weights(training_type: str, state, ckpts: ExperimentCheckpoints):
