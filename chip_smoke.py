@@ -109,6 +109,23 @@ result line):
             and mp_densenet121 at the batch their measured peak memory allows:
             two levels of 4 steps, the step's time, busy time by kind, FLOP
             bound and peak memory.
+11. sparse  the sparse execution (runs after imagenet_folder): imagenet_imp
+            with VGG-16-BN at 224 (bf16, batch 256, synthetic data, two
+            levels of 4 steps, weight decay 0) with compact_train,
+            compact_eval and nm_sparsity '2:4', a seeded half of every conv
+            space's output channels killed in level 1's masks: the level-1
+            plan (compact or mixed: params before and after, the gathered
+            fc0-fc2), the exit's removed coordinates equal to the level's
+            start bit for bit and the level checkpoint in full coordinates,
+            one fp32 step of the plan and of masked-dense against float64
+            over 3 orders of the batch, the bf16 step's time and peak memory
+            beside masked-dense's; DeiT-Small/16 @ 224 with flash attention
+            and nm_sparsity '2:4' as the train phase runs it: 25 layers
+            gathered at level 1 (12 fc1, 12 fc2, the head) while K1/K2/K3
+            launch 12 times per forward / backward, one fp32 step's
+            gradient against masked-dense, the step's time beside
+            masked-dense's; nm_matmul alone at VGG-16's fc0 and a ResNet-50
+            Conv_0 against masked-dense, timed.
 
 Prints the card (nvidia-smi name and power limit), a ``kernels`` JSON line,
 and as the last line ``{"ok": true, "device": {...}}``. Needs one CUDA card;
@@ -790,6 +807,29 @@ def _get(url: str) -> str:
 KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 
+# Spin kernels (torch.cuda._sleep, ~5 ms each on an H100) bracket the
+# profiled calls on the device's own timeline. On an H100 under host load the
+# profiler has twice reported 35 K1 launches in 3 replayed compiled DeiT
+# steps whose CUDA graphs hold 12 each, a record lost near the start of the
+# profile; so a profile opens with one call that is not counted, and only
+# the kernels between the two spins that enclose the counted calls are read.
+MARKER_CYCLES = 10_000_000
+MARKER_KERNEL = "spin_kernel"
+
+
+def _between_markers(events: list) -> list:
+    """Of device events (start, end, name) in any order, those between the
+    two consecutive marker kernels that enclose the most events: the
+    counted calls, where the layout is uncounted call, marker, counted
+    calls, marker, marker."""
+    evs = sorted(events)
+    marks = [i for i, ev in enumerate(evs) if MARKER_KERNEL in ev[2]]
+    if len(marks) < 2:
+        raise AssertionError(f"the profile holds {len(marks)} of the 3 marker kernels")
+    a, b = max(zip(marks, marks[1:]), key=lambda ab: ab[1] - ab[0])
+    return evs[a + 1:b]
+
+
 def _device_busy_ms(
     fn, reps: int = 3, inference: bool = True, top: int | None = 5,
     counts: dict | None = None,
@@ -799,32 +839,39 @@ def _device_busy_ms(
     kernels (all with None) that took the most device time as (name, ms
     per call). Zeros when the profiler records no device activity. With
     ``counts``, fills it with the launches of each of the port's kernels
-    over the ``reps`` calls."""
+    over the ``reps`` calls. The profile holds one more call of ``fn``
+    before the ``reps`` counted ones, and marker kernels around them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    assert reps >= 2, "the counted calls must outnumber the uncounted one"
     mode = torch.inference_mode() if inference else torch.enable_grad()
     with mode, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda._sleep(MARKER_CYCLES)
         for _ in range(reps):
             fn()
+        torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda._sleep(MARKER_CYCLES)
         torch.cuda.synchronize()
-    total = 0.0
+    device = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        return 0.0, dict.fromkeys(KERNEL_NAMES, 0.0), []
+    by_name: dict = {}
+    for start, end, name in _between_markers(device):
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (end - start) / reps / 1e3, n + 1)
     ours = dict.fromkeys(KERNEL_NAMES, 0.0)
-    by_kernel = []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            total += t
-            by_kernel.append((e.key[:60], t / reps / 1e3))
-            for name in KERNEL_NAMES:
-                if name in e.key:
-                    ours[name] += t / reps / 1e3
-                    if counts is not None:
-                        counts[name] = counts.get(name, 0) + e.count
-    ranked = sorted(by_kernel, key=lambda kv: -kv[1])[:top]
-    return total / reps / 1e3, ours, ranked
+    for name, (ms, n) in by_name.items():
+        for k in KERNEL_NAMES:
+            if k in name:
+                ours[k] += ms
+                if counts is not None:
+                    counts[k] = counts.get(k, 0) + n
+    ranked = sorted(((name[:60], ms) for name, (ms, _) in by_name.items()),
+                    key=lambda kv: -kv[1])[:top]
+    return sum(ms for ms, _ in by_name.values()), ours, ranked
 
 
 def phase_slice() -> dict:
@@ -3153,6 +3200,429 @@ def phase_imagenet_folder(card: str, imagenet: dict) -> dict:
     return {"batch": batch}
 
 
+# ---------------------------------------------------------------- phase 11
+# The sparse path (experiment_params.compact_train / compact_eval /
+# nm_sparsity, sparse/): imagenet_imp with VGG-16-BN at 224, 1000 classes,
+# bf16, batch 256 (the batch the imagenet_folder phase's memory probe took
+# for it), synthetic data, two levels of 4 steps. Weight decay 0, so the
+# coordinates a compacted level removes end where the masked-dense run
+# leaves them (the level's start). Level 1's masks get a seeded half of
+# every conv space's output channels killed (whole fan-out slices, as the
+# JAX bench's compaction stage plants them): magnitude pruning from a
+# random init at density 0.8 kills no whole channel, and the planner would
+# decline (planner.compact_min_savings 0.25). Then DeiT-Small/16 @ 224 with
+# flash attention at 256 with nm_sparsity '2:4', as the train phase runs it.
+SPARSE_VGG_OVERRIDES = [
+    "model_params=mp_vgg16",
+    "dataset_params.dataloader_type=synthetic",
+    "dataset_params.total_batch_size=256",
+    "dataset_params.synthetic_num_train=1024",
+    "dataset_params.synthetic_num_test=256",
+    "experiment_params.epochs_per_level=1",
+    "pruning_params.target_sparsity=0.2",
+    "optimizer_params.weight_decay=0",
+    "experiment_params.compact_train=true",
+    "experiment_params.compact_eval=true",
+    "experiment_params.nm_sparsity='2:4'",
+]
+SPARSE_VGG_STEPS = 1024 // 256
+SPARSE_KILL_SHARE = 0.5
+SPARSE_DEIT_OVERRIDES = TRAIN_OVERRIDES + ["experiment_params.nm_sparsity='2:4'"]
+# DeiT-Small's layers with a gathered hook under flash attention.
+SPARSE_DEIT_GATHERED = {f"block{i}/mlp/fc{j}" for i in range(DEPTH) for j in (1, 2)} | {"head"}
+# One fp32 train step of the level-1 VGG (dropout rate 0), compacted and
+# gathered against masked-dense, both held to float64 (the noise rule of
+# card_cpu_noise.py: a BatchNorm network's fp32 step lies ~1e-6 or ~1e-3
+# from float64 by ReLU flips, so the limit is 1e-3 of the whole gradient's
+# norm, 1e-4 of the largest logit, each plus twice masked-dense's largest
+# distance over SPARSE_ORDERS orders of the batch).
+SPARSE_GRAD_BATCH = 16
+SPARSE_ORDERS = 3
+SPARSE_GRAD_LIMIT = 1e-3
+SPARSE_LOGIT_LIMIT = 1e-4
+
+
+class _SparseRecorder:
+    """Records, from inside the driver's run, each level's starting state
+    and masks and the plan it entered; with ``kill_share``, kills that
+    share of every conv space's output channels in level 1's masks first."""
+
+    def __init__(self, kill_share: float = 0.0):
+        self.kill_share = kill_share
+        self.starts, self.plans, self.reports = {}, {}, {}
+        self.harness = None
+        self.level = None
+
+    def harness_cls(self):
+        import torch
+
+        from turboprune_tpu_torch.harness import PruningHarness
+
+        rec = self
+
+        class Harness(PruningHarness):
+            def train_one_level(self, epochs_per_level, level):
+                rec.harness, rec.level = self, level
+                if level == 1 and rec.kill_share:
+                    g = torch.Generator().manual_seed(level)
+                    for path, m in self.state.masks.items():
+                        if path.startswith("conv"):
+                            m[(torch.rand(m.shape[0], generator=g) < rec.kill_share).cuda()] = False
+                rec.starts[level] = (
+                    {k: v.detach().clone() for k, v in self.state.model.state_dict().items()},
+                    {p: m.clone() for p, m in self.state.masks.items()})
+                return super().train_one_level(epochs_per_level, level)
+
+            def _enter_plan(self):
+                super()._enter_plan()
+                rec.reports[rec.level] = self.last_plan_report
+                rec.plans[rec.level] = self._plan_ctx and self._plan_ctx["plan"]
+
+        return Harness
+
+
+def _removed_coordinates(plan, start: dict, end: dict) -> tuple[int, list]:
+    """(coordinates the compaction removed, tensors where one of them
+    moved): each must end as the level started, bit for bit."""
+    import torch
+
+    from turboprune_tpu_torch.sparse.graph import state_key
+
+    n, moved = 0, []
+    for path in set(plan.in_keep) | set(plan.out_keep) | set(plan.stats_keep):
+        key = state_key(path)
+        rows = plan.out_keep.get(path, plan.stats_keep.get(path))
+        kept = torch.ones(start[key].shape[0], dtype=torch.bool) if rows is None else \
+            torch.from_numpy(rows)
+        kept = kept.reshape(-1, *[1] * (start[key].dim() - 1)).expand(start[key].shape).clone()
+        if path in plan.in_keep:
+            cols = torch.from_numpy(plan.in_keep[path])
+            kept &= cols.reshape(1, -1, *[1] * (start[key].dim() - 2)).expand_as(kept)
+        removed = ~kept.to(start[key].device)
+        n += int(removed.sum())
+        if not torch.equal(end[key][removed], start[key][removed]):
+            moved.append(key)
+    return n, moved
+
+
+def _step_grads(model, masks, images, labels):
+    """(logits, parameter gradients) of one train step, in float64."""
+    import torch
+
+    from turboprune_tpu_torch.train import train_forward
+
+    model.train()
+    params = dict(model.named_parameters())
+    out = train_forward(model, masks, images, labels)
+    grads = torch.autograd.grad(out["loss"], list(params.values()))
+    return out["logits"].double(), {n: g.double() for n, g in zip(params, grads)}
+
+
+def _flat(g: dict):
+    import torch
+
+    return torch.cat([g[k].reshape(-1) for k in sorted(g)])
+
+
+def _sparse_fp32_step(name: str, state: dict, masks: dict, plan) -> None:
+    """The compacted and gathered fp32 step of ``plan`` against
+    masked-dense, both against float64 (SPARSE_* limits)."""
+    import copy
+
+    import torch
+
+    from turboprune_tpu_torch.data.augment import CIFAR10_MEAN, CIFAR10_STD, normalize_uint8
+    from turboprune_tpu_torch.data.synthetic import synthetic_arrays
+    from turboprune_tpu_torch.models import create_model
+    from turboprune_tpu_torch.sparse import compact_stats, compact_tree, expand_tree, model_leaves
+    from turboprune_tpu_torch.sparse.graph import flax_path, state_key
+
+    full = create_model(name, 1000, "ImageNet").cuda()
+    full.load_state_dict(state)
+    exact = copy.deepcopy(full).double()
+    for module in exact.modules():
+        if hasattr(module, "dtype"):
+            module.dtype = torch.float64
+    small = create_model(name, 1000, "ImageNet", width_overrides=plan.width_overrides,
+                         nm_overrides=plan.nm_overrides).cuda()
+    params, stats = model_leaves(full)
+    cp = plan.compaction
+    small.load_state_dict({state_key(p): t for p, t in
+                           {**compact_tree(params, cp), **compact_stats(stats, cp)}.items()})
+    small_masks = compact_tree(masks, cp)
+    for model in (full, exact, small):
+        model.dropout_rate = 0.0
+    x, y = synthetic_arrays(SPARSE_GRAD_BATCH, 224, 1000, seed=13)
+    images = normalize_uint8(torch.from_numpy(x).cuda(), CIFAR10_MEAN, CIFAR10_STD)
+    labels = torch.from_numpy(y).long().cuda()
+    l64, g64 = _step_grads(exact, masks, images.double(), labels)
+    g64 = _flat(g64)
+    logit_scale = float(l64.abs().max())
+    dist = {"masked-dense": [], "plan": []}
+    logit = {"masked-dense": [], "plan": []}
+    for i in range(SPARSE_ORDERS):
+        perm = torch.randperm(SPARSE_GRAD_BATCH, generator=torch.Generator().manual_seed(i)).cuda()
+        if i == 0:
+            perm = torch.arange(SPARSE_GRAD_BATCH, device="cuda")
+        for route, model, m in (("masked-dense", full, masks), ("plan", small, small_masks)):
+            lg, g = _step_grads(model, m, images[perm], labels[perm])
+            if route == "plan":  # into full coordinates, zeros where removed
+                g = {flax_path(k, v.dim()): v for k, v in g.items()}
+                g = {state_key(p): v for p, v in expand_tree(g, cp).items()}
+            dist[route].append(float((_flat(g) - g64).norm() / g64.norm()))
+            logit[route].append(float((lg - l64[perm]).abs().max()) / logit_scale)
+    grad_limit = SPARSE_GRAD_LIMIT + 2 * max(dist["masked-dense"])
+    logit_limit = SPARSE_LOGIT_LIMIT + 2 * max(logit["masked-dense"])
+    log(f"sparse {name} fp32 step (batch {SPARSE_GRAD_BATCH}, 224, dropout 0, TF32 off, "
+        f"{SPARSE_ORDERS} orders of the batch) against float64 on the card: whole gradient "
+        f"distance / norm masked-dense {max(dist['masked-dense']):.3e}, {plan.kind} plan "
+        f"{max(dist['plan']):.3e} (limit {SPARSE_GRAD_LIMIT:g} + 2 x masked-dense's = "
+        f"{grad_limit:.3e}); largest logit error / largest logit masked-dense "
+        f"{max(logit['masked-dense']):.3e}, plan {max(logit['plan']):.3e} (limit "
+        f"{logit_limit:.3e})")
+    if max(dist["plan"]) > grad_limit or max(logit["plan"]) > logit_limit:
+        raise AssertionError(f"{name}: the {plan.kind} fp32 step disagrees with float64")
+
+
+def _plan_step_times(harness, tag: str, card: str) -> None:
+    """One bf16 train step of the harness's level-1 state, masked-dense and
+    on its plan: time (CUDA events, median of 3) and peak memory."""
+    import torch
+
+    harness.setup_level(1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = harness.cfg.dataset_params.total_batch_size
+    step_batch = (torch.randn(batch, 224, 224, 3, device="cuda", generator=gen),
+                  torch.randint(0, 1000, (batch,), device="cuda", generator=gen))
+
+    def measure(route: str) -> str:
+        def step():
+            return harness._train_step(harness.state, step_batch)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = _call_ms(step, reps=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        busy, _, kernels = _device_busy_ms(step, reps=2, inference=False, top=None)
+        times[route] = ms
+        return (f"{route} {ms:.3f} ms, device busy {busy:.3f} ms (idle "
+                f"{max(0.0, 1 - busy / ms) * 100:.1f}%; by kind: {_kinds_line(_kinds(kernels))}), "
+                f"peak {peak:.2f} GB")
+
+    times: dict = {}
+    dense = measure("masked-dense")
+    harness._enter_plan()
+    try:
+        kind = harness._plan_ctx["plan"].kind
+        planned = measure(f"{kind} plan")
+    finally:
+        harness._exit_plan()
+    log(f"sparse {tag} train step (224, batch {batch}, bf16, eager; CUDA events, median "
+        f"of 3, host work included; busy by torch.profiler over 2 steps): {dense}; {planned} "
+        f"(the full state stays resident as the level's anchor); plan / masked-dense "
+        f"{times[kind + ' plan'] / times['masked-dense']:.3f} on {card}")
+
+
+def _nm_matmul_alone(card: str) -> None:
+    """nm_matmul at VGG-16's fc0 (fp32, as the classifier runs) and at a
+    ResNet-50 Conv_0 (layer3, 1024 -> 256 channels at 14 x 14, bf16)
+    against masked-dense on a 2:4 pattern on both axes: forward, and
+    forward plus backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from turboprune_tpu_torch.sparse.nm import nm_pattern_transposable
+    from turboprune_tpu_torch.sparse.nm_execute import nm_matmul
+
+    shapes = {"VGG-16 fc0": (256, 25088, 4096, torch.float32, False),
+              "ResNet-50 layer3 Conv_0": (256 * 14 * 14, 1024, 256, torch.bfloat16, True)}
+    for name, (b, i, o, dt, conv) in shapes.items():
+        g = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.randn(b, i, device="cuda", generator=g).to(dt)
+        w32 = torch.randn(i, o, device="cuda", generator=g)
+        keep_in, keep_out = nm_pattern_transposable(w32.abs(), 2, 4)
+        w = w32.to(dt)
+        bias = torch.zeros(o, device="cuda", dtype=dt) if conv else \
+            torch.randn(o, device="cuda", generator=g)
+        dy = torch.randn(b, o, device="cuda", generator=g).to(dt)
+        mask = (keep_in[:, None] & keep_out[None, :]).to(dt)
+        ki, ko = keep_in.nonzero().flatten(), keep_out.nonzero().flatten()
+        # The model's 1x1 convolution takes the channels_last NCHW view.
+        x4 = x.reshape(256, 14, 14, i).permute(0, 3, 1, 2) if conv else None
+        dy4 = dy.reshape(256, 14, 14, o).permute(0, 3, 1, 2) if conv else None
+        xr, x4r, wr, br = (None if t is None else t.clone().requires_grad_()
+                           for t in (x, x4, w, bias))
+
+        def dense(grad: bool):
+            xin, win = (x4r if conv else xr, wr) if grad else (x4 if conv else x, w)
+            if conv:
+                y = F.conv2d(xin, (win * mask).T[:, :, None, None])
+            else:
+                y = xin @ (win * mask) + (br if grad else bias)
+            if grad:
+                y.backward(dy4 if conv else dy)
+            return y
+
+        def gathered(grad: bool):
+            y = nm_matmul(ki, ko, xr if grad else x, (wr if grad else w) * mask,
+                          br if grad else bias)
+            if grad:
+                y.backward(dy)
+            return y
+
+        with torch.no_grad():
+            want = dense(False)
+            want = want.permute(0, 2, 3, 1).reshape(b, o) if conv else want
+            err = float((gathered(False) - want).abs().max())
+            scale = float(want.abs().max())
+            fwd = {f.__name__: _call_ms(lambda f=f: f(False), reps=5) for f in (dense, gathered)}
+        step = {f.__name__: _call_ms(lambda f=f: f(True), reps=5) for f in (dense, gathered)}
+        tol = 1e-5 if dt == torch.float32 else 2.0 ** -7
+        log(f"sparse nm_matmul {name} ({b} x {i} -> {o}, {str(dt)[6:]}, 2:4 on both axes: "
+            f"forward and dx at 1/4 of the dense GEMM's FLOPs, dw the full GEMM): forward "
+            f"{fwd['gathered']:.3f} ms vs masked-dense {'conv' if conv else 'matmul'} "
+            f"{fwd['dense']:.3f} ms ({fwd['dense'] / fwd['gathered']:.2f}x); forward + backward "
+            f"{step['gathered']:.3f} ms vs {step['dense']:.3f} ms "
+            f"({step['dense'] / step['gathered']:.2f}x); max |y - y_dense| {err:.3e} of max "
+            f"|y| {scale:.3e} (limit {tol:g} of it); CUDA events, median of 5, on {card}")
+        if not err <= tol * scale:
+            raise AssertionError(f"nm_matmul at {name} disagrees with masked-dense")
+
+
+def phase_sparse(card: str) -> dict:
+    import torch
+
+    from turboprune_tpu_torch.config.compose import compose
+    from turboprune_tpu_torch.ops import flash, masking
+    from turboprune_tpu_torch.utils import ExperimentCheckpoints
+
+    t_phase = time.perf_counter()
+    counters = (flash.flash_fwd_cuda, flash.flash_bwd_dq_cuda, flash.flash_bwd_dkv_cuda)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sparse_") as base:
+        # ---- VGG-16-BN: compaction, compact eval and 2:4 on the classifier
+        rec = _SparseRecorder(SPARSE_KILL_SHARE)
+        rc, expt, wall = _run_config("imagenet_imp", SPARSE_VGG_OVERRIDES + [
+            f"experiment_params.base_dir={base}/vgg"], rec)
+        log(f"sparse vgg16_bn: run_experiment_torch main --config-name=imagenet_imp "
+            + " ".join(SPARSE_VGG_OVERRIDES[:1] + SPARSE_VGG_OVERRIDES[-4:])
+            + f" -> {rc} in {wall:.1f} s (batch 256, 2 levels of {SPARSE_VGG_STEPS} steps)")
+        rows = [r for lvl in (0, 1) for r in _read_csv(
+            expt / "metrics" / "level_wise_metrics" / f"level_{lvl}_metrics.csv")]
+        losses = [float(r[k]) for r in rows for k in ("train_loss", "test_loss")]
+        for r in rows:
+            log(f"sparse vgg16_bn level {r['level']}: train_loss {float(r['train_loss']):.4f} "
+                f"test_loss {float(r['test_loss']):.4f} sparsity {float(r['sparsity']):.4f}% "
+                f"{float(r['samples_per_sec']):.1f} img/s over the epoch")
+        report, plan = rec.reports.get(1), rec.plans.get(1)
+        if rc or len(rows) != 2 or not all(math.isfinite(v) for v in losses) or plan is None:
+            raise AssertionError(f"vgg16_bn sparse run: rc {rc}, losses {losses}, plan {report}")
+        comp = report["compaction"]
+        gathered = sorted(plan.nm_overrides or {})
+        log(f"sparse vgg16_bn level 0 plan: {rec.reports[0]['kind']} "
+            f"({rec.reports[0]['compaction']['reason']}); level 1 plan: {plan.kind}, params "
+            f"{comp['params_before']:,} -> {comp['params_after']:,} (savings "
+            f"{comp['savings']:.4f}), channels {comp['channels_before']:,} -> "
+            f"{comp['channels_after']:,} in {report['backend_counts']['compact_spaces']} "
+            f"spaces; gathered {gathered}; decisions "
+            + json.dumps({k: v["backend"] for k, v in report["decisions"]["layers"].items()
+                          if k.startswith("fc")}))
+        if plan.kind not in ("compact", "mixed") or rec.reports[0]["kind"] != "masked" or (
+                plan.kind == "mixed" and not {"fc0", "fc1", "fc2"} <= set(gathered)):
+            raise AssertionError(f"vgg16_bn plans: level 0 {rec.reports[0]['kind']}, level 1 "
+                                 f"{plan.kind}, gathered {gathered}")
+        harness = rec.harness
+        start, start_masks = rec.starts[1]
+        end = harness.state.model.state_dict()
+        n_removed, moved = _removed_coordinates(plan.compaction, start, end)
+        level1 = ExperimentCheckpoints(expt).load_level(1)
+        full = all(level1["params"][k].shape == v.shape for k, v in harness.model.named_parameters())
+        same_masks = all(torch.equal(level1["masks"][p], m.cpu()) for p, m in start_masks.items())
+        log(f"sparse vgg16_bn exit: {n_removed:,} removed coordinates (params and BatchNorm "
+            f"statistics) equal the level's start bit for bit: {not moved} (moved: {moved}); "
+            f"model_level_1 in full coordinates {full}, its masks the level's {same_masks}; "
+            f"level 1 density {masking.overall_density(level1['masks']):.6f}")
+        if moved or not full or not same_masks:
+            raise AssertionError("vgg16_bn: the compacted level's exit is not in full coordinates")
+        _sparse_fp32_step(harness.cfg.model_params.model_name, start, start_masks, plan)
+        _plan_step_times(harness, "vgg16_bn", card)
+        del rec, harness, start, end
+        torch.cuda.empty_cache()
+
+        # ---- DeiT-Small: 2:4 gathered MLPs and head, attention on K1-K3
+        rec = _SparseRecorder()
+        for c in counters:
+            c.launches = 0
+        rc, expt, wall = _run_config("imagenet_imp", SPARSE_DEIT_OVERRIDES + [
+            f"experiment_params.base_dir={base}/deit"], rec)
+        launches = {c.__name__: c.launches for c in counters}
+        # ---- end of the main path
+        expect = {"flash_fwd_cuda": DEPTH * (TRAIN_STEPS + EVAL_BATCHES),
+                  "flash_bwd_dq_cuda": DEPTH * TRAIN_STEPS,
+                  "flash_bwd_dkv_cuda": DEPTH * TRAIN_STEPS}
+        rows = [r for lvl in (0, 1) for r in _read_csv(
+            expt / "metrics" / "level_wise_metrics" / f"level_{lvl}_metrics.csv")]
+        losses = [float(r[k]) for r in rows for k in ("train_loss", "test_loss")]
+        report, plan = rec.reports.get(1), rec.plans.get(1)
+        gathered = set(plan.nm_overrides or {}) if plan else set()
+        log(f"sparse deit_small: run_experiment_torch main --config-name=imagenet_imp "
+            f"model_params=mp_deit_small model_params.attention_impl=flash "
+            f"experiment_params.nm_sparsity='2:4' -> {rc} in {wall:.1f} s; level 0 plan "
+            f"{rec.reports[0]['kind']}, level 1 plan {plan and plan.kind}: {len(gathered)} "
+            f"layers gathered (coverage {report['coverage_frac']:.3f}), the expected 12 fc1 + "
+            f"12 fc2 + head: {gathered == SPARSE_DEIT_GATHERED}; K1/K2/K3 launches {launches} "
+            f"(expected {expect}: 12 per forward / backward); losses finite "
+            f"{all(math.isfinite(v) for v in losses)}")
+        if (rc or gathered != SPARSE_DEIT_GATHERED or launches != expect
+                or not all(math.isfinite(v) for v in losses) or rec.reports[0]["kind"] != "masked"):
+            raise AssertionError("deit_small nm run failed its checks")
+        _sparse_deit_grads(rec, plan)
+        _plan_step_times(rec.harness, "deit_small", card)
+        del rec
+        torch.cuda.empty_cache()
+    _nm_matmul_alone(card)
+    log(f"sparse phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
+def _sparse_deit_grads(rec, plan) -> None:
+    """One fp32 step's gradient of the gathered DeiT (level 1's start)
+    against masked-dense's, both with flash attention (GRAD_FP32_TOL per
+    tensor; the key biases, whose exact gradient is zero, against their
+    block's query bias, KEY_BIAS_RATIO)."""
+    import torch
+
+    from turboprune_tpu_torch.data.augment import CIFAR10_MEAN, CIFAR10_STD, normalize_uint8
+    from turboprune_tpu_torch.data.synthetic import synthetic_arrays
+    from turboprune_tpu_torch.models import create_model
+
+    state, masks = rec.starts[1]
+    cfg = rec.harness.cfg
+    x, y = synthetic_arrays(GRAD_FP32_BATCH, cfg.dataset_params.image_size, 1000, seed=7)
+    images = normalize_uint8(torch.from_numpy(x).cuda(), CIFAR10_MEAN, CIFAR10_STD)
+    labels = torch.from_numpy(y).long().cuda()
+    grads = {}
+    for route, nm in (("masked-dense", None), ("gathered", plan.nm_overrides)):
+        model = create_model(cfg.model_params.model_name, 1000, "ImageNet",
+                             attention_impl="flash", image_size=cfg.dataset_params.image_size,
+                             nm_overrides=nm).cuda()
+        model.load_state_dict(state)
+        grads[route] = _grads(model, masks, images, labels)
+    key_bias = [n for n in grads["masked-dense"] if n.endswith("attn.key.bias")]
+    rel = {n: r for n, r in _rel(grads["gathered"], grads["masked-dense"]).items()
+           if n not in key_bias}
+    worst = max(rel, key=rel.get)
+    kb = max((grads["gathered"][n].norm() / grads["gathered"][n.replace(".key.", ".query.")].norm()).item()
+             for n in key_bias)
+    whole = _whole_rel(grads["gathered"], grads["masked-dense"])
+    log(f"sparse deit_small grads (fp32, batch {GRAD_FP32_BATCH}, flash on both) gathered vs "
+        f"masked-dense: whole {whole:.3e} of its norm; per tensor median "
+        f"{statistics.median(rel.values()):.3e}, worst {rel[worst]:.3e} at {worst} (limit "
+        f"{GRAD_FP32_TOL:g}); key-bias / query-bias gradient norm {kb:.3e} (limit "
+        f"{KEY_BIAS_RATIO:g})")
+    if rel[worst] > GRAD_FP32_TOL or kb > KEY_BIAS_RATIO:
+        raise AssertionError("gathered DeiT gradients disagree with masked-dense")
+
+
 def main() -> int:
     import torch
 
@@ -3175,18 +3645,19 @@ def main() -> int:
     cyclic_out = phase_cyclic()
     imagenet_out = phase_imagenet(card)
     phase_imagenet_folder(card, imagenet_out)
+    sparse_out = phase_sparse(card)
     compile_out = phase_compile(resnet_out, train_out)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s on {card}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_flash_ms")
     # Launches on the main paths: K1 in every forward, served, trained,
-    # trained in cycles and trained compiled; K2/K3 in every training
-    # backward. The wrappers count the eager paths; the profiler counts the
+    # trained in cycles, trained with gathered N:M layers and trained
+    # compiled; K2/K3 in every training backward. The wrappers count the eager paths; the profiler counts the
     # compiled one, whose CUDA-graph replays run no Python.
     compiled = dict(zip(("flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda"),
                         (compile_out["device_launches"][k] for k in KERNEL_NAMES)))
     trained = {k: train_out["launches"][k] + cyclic_out["launches"][k] + compiled[k]
-               for k in train_out["launches"]}
+               + sparse_out["launches"][k] for k in train_out["launches"]}
     rows = [
         {**K1, "launches": slice_out["launches"] + trained["flash_fwd_cuda"],
          **{k: timing[k] for k in keys}},

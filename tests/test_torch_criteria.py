@@ -228,5 +228,5 @@ def test_dispatch_needs_its_inputs():
     for method in ("snip", "synflow"):
         with pytest.raises(ValueError, match="batch"):
             prune_the_model(method, model, masks, 0.5)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="nm_sparsity"):
         prune_the_model("nm", model, masks, 0.5)

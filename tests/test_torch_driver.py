@@ -105,7 +105,7 @@ def test_cuda_is_the_default_and_raises_without_it(tmp_path):
     "override",
     [
         "experiment_params.profile_dir={tmp}/profile",
-        "experiment_params.compact_train=true",
+        "experiment_params.num_devices=2",
         "model_params.pretrained_path={tmp}/deit.npz",
         "optimizer_params.optimizer_name=ScheduleFreeSGD",
     ],

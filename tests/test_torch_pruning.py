@@ -68,7 +68,7 @@ def test_dispatch_keeps_or_refuses():
     assert prune_the_model("just dont", model, masks, 0.5) is masks
     got = prune_the_model("mag", model, masks, 0.5)
     assert all(torch.equal(got[p], m) for p, m in prune_mag(state, masks, 0.5).items())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="nm_sparsity"):
         prune_the_model("nm", model, masks, 0.5)
     with pytest.raises(ValueError, match="Unknown"):
         prune_the_model("nope", model, masks, 0.5)

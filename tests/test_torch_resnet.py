@@ -224,7 +224,9 @@ def test_create_model_stems_and_refusals():
         assert name not in NOT_YET_PORTED
         with torch.device("meta"):
             assert create_model(name, 10, "CIFAR10").num_classes == 10
-    with pytest.raises(NotImplementedError, match="item 15"):
-        create_model("resnet18", 10, "CIFAR10", width_overrides={"layer1_0/Conv_0": 3})
-    with pytest.raises(NotImplementedError, match="item 15"):
-        create_model("resnet18", 10, "CIFAR10", nm_overrides={"fc": ((0,), (0,))})
+    # The sparse execution's constructor knobs (sparse/): a compacted
+    # block-internal width, a gathered head.
+    small = create_model("resnet18", 10, "CIFAR10", width_overrides={"layer1_0/Conv_0": 3})
+    assert small.layer1_0.Conv_0.out_channels == small.layer1_0.Conv_1.in_channels == 3
+    gathered = create_model("resnet18", 10, "CIFAR10", nm_overrides={"fc": ((0,), (0,))})
+    assert type(gathered.fc).__name__ == "NMDense" and gathered.fc.kept_in.tolist() == [0]

@@ -66,7 +66,12 @@ def test_registry_and_constructor_contracts():
         with torch.device("meta"):
             assert create_model(name, 10).num_classes == 10
     assert NOT_YET_PORTED == ()
-    with pytest.raises(NotImplementedError, match="sparse-execution slice"):
-        tvit.VisionTransformer(**TINY, image_size=32, width_overrides={"a": 1})
-    with pytest.raises(NotImplementedError, match="sparse-execution slice"):
-        tvit.VisionTransformer(**TINY, image_size=32, nm_overrides={"a": 1})
+    # The sparse execution's constructor knobs (sparse/): a compacted MLP,
+    # gathered projections under dense attention only.
+    small = tvit.VisionTransformer(**TINY, image_size=32, width_overrides={"block1/mlp/fc1": 8})
+    assert small.block1.mlp.fc1.out_features == small.block1.mlp.fc2.in_features == 8
+    assert small.block0.mlp.fc1.out_features == 4 * TINY["embed_dim"]
+    hook = {"block0/attn/query": ((0, 1), None)}
+    assert tvit.VisionTransformer(**TINY, image_size=32, nm_overrides=hook).block0.attn.query.kept_in.tolist() == [0, 1]
+    with pytest.raises(ValueError, match="attention_impl='dense'"):
+        tvit.VisionTransformer(**TINY, image_size=32, attention_impl="flash", nm_overrides=hook)

@@ -14,11 +14,12 @@ from typing import Optional, Type
 
 import torch
 
-from .config.schema import MainConfig
+from .config.schema import MainConfig, parse_nm
 from .data.cifar import derived_generator
 from .harness import CyclicPruningHarness, PruningHarness
 from .ops import masking
 from .pruning import DATA_DRIVEN_METHODS, generate_densities, prune_the_model
+from .sparse.nm import project_masks
 from .utils import (
     ExperimentCheckpoints,
     gen_expt_dir,
@@ -55,19 +56,32 @@ def _first_train_batch(harness: PruningHarness) -> tuple:
 def prune_level(harness: PruningHarness, density: float, level: int) -> None:
     """Prune the harness state to ``density``, then rewind the weights as
     ``training_type`` says (masks survive the rewind). The random criteria
-    draw from a generator derived from (seed, level), on the device."""
+    draw from a generator derived from (seed, level), on the device. With
+    ``experiment_params.nm_sparsity`` the masks of every criterion but
+    "nm" (which projects inside) and "just dont" are then projected onto
+    the N:M pattern (monotone: the ladder never resurrects a weight)."""
     cfg = harness.cfg
+    ep = cfg.experiment_params
     method = cfg.pruning_params.prune_method
     state = harness.state
-    generator = derived_generator(harness.device, cfg.experiment_params.seed, level, "prune")
+    generator = derived_generator(harness.device, ep.seed, level, "prune")
     batch = _first_train_batch(harness) if method in DATA_DRIVEN_METHODS else None
+    nm_spec = None
+    if ep.nm_sparsity:
+        nm_spec = (*parse_nm(ep.nm_sparsity), ep.nm_transposable)
     before = masking.overall_sparsity(state.masks)
     state.masks = prune_the_model(method, state.model, state.masks, density,
-                                  generator=generator, batch=batch)
+                                  generator=generator, batch=batch,
+                                  nm=nm_spec if method == "nm" else None)
+    nm_note = ""
+    if nm_spec is not None and method not in ("nm", "just dont"):
+        state.masks, nm_report = project_masks(state.model.state_dict(), state.masks, *nm_spec)
+        nm_note = (f", {ep.nm_sparsity} projection kept "
+                   f"{nm_report['preserved_magnitude_frac']:.3f} of magnitude")
     after = masking.overall_sparsity(state.masks)
     print(
         f"[prune] level {level}: {method} to density {density:.4f} "
-        f"(sparsity {before:.2f}% -> {after:.2f}%)",
+        f"(sparsity {before:.2f}% -> {after:.2f}%){nm_note}",
         flush=True,
     )
     reset_weights(cfg.pruning_params.training_type, state, harness.ckpts)

@@ -4,8 +4,9 @@ of a sparsity level (port of ``turboprune_tpu/harness/cyclic_harness.py``).
 The same harness as ``PruningHarness`` except that ``train_one_level``
 splits the level's epoch budget into ``cyclic_training.num_cycles`` cycles
 (``pruning.generate_cyclical_schedule``, by ``cyclic_training.strategy``)
-and gives each cycle a fresh optimizer and schedule; its rows carry a
-``cycle`` column.
+and gives each cycle a fresh optimizer and schedule (and, with sparse
+execution, its own entry into and exit from the level's plan); its rows
+carry a ``cycle`` column.
 """
 
 from __future__ import annotations
@@ -50,9 +51,17 @@ class CyclicPruningHarness(PruningHarness):
             self.setup_level(epochs)
             if cycle == 0:
                 self.maybe_rewind_optimizer(level)
-            for epoch in range(epochs):
-                row = {"level": level, "cycle": cycle, "epoch": epoch}
-                max_test_acc = self._run_epoch(row, max_test_acc, snapshot_ok=level == 0 and cycle == 0)
+            # The fresh optimizer is over the full params, so the plan
+            # enters and exits per cycle; cycles with equal budgets reuse
+            # one cached plan bundle.
+            self._enter_plan()
+            try:
+                for epoch in range(epochs):
+                    row = {"level": level, "cycle": cycle, "epoch": epoch}
+                    max_test_acc = self._run_epoch(row, max_test_acc,
+                                                   snapshot_ok=level == 0 and cycle == 0)
+            finally:
+                self._exit_plan()
 
         return self.metrics.finish_level(
             level,

@@ -19,10 +19,23 @@ built once per harness; the shapes do not change between levels, so
 nothing recompiles. The metric sums stay on the device until the epoch's
 end.
 
+Sparse execution (``experiment_params.compact_train`` and/or
+``nm_sparsity``): at each level's start, after any mid-level restore, one
+planner (``sparse.plan_execution``) derives an ExecutionPlan from the live
+masks: slice the whole train state onto a physically smaller model where
+dead channels clear ``planner.compact_min_savings``, gather the surviving
+N:M contractions, stay masked-dense where neither pays. The level then
+trains on the plan's model (its own module objects, a fresh optimizer
+holding the sliced state; under ``use_compile`` its own compiled graphs)
+and, in a ``finally``, is scattered back into the full state it entered
+with (``_exit_plan``). Everything that leaves a level is in full
+coordinates: the level and rewind checkpoints, the mid-level slot, the
+CSV's sparsity, the driver's prune. ``compact_eval`` evaluates on the
+compacted model (``compact_params``) when no plan is live.
+
 Options of the JAX harness that later slices port raise here, naming the
-ROADMAP.md item: the sparse execution backends (``compact_train``,
-``compact_eval``, ``nm_sparsity``), more than one device, the profiler
-trace.
+ROADMAP.md item: more than one device, the profiler trace, pretrained
+weights.
 """
 
 from __future__ import annotations
@@ -30,15 +43,27 @@ from __future__ import annotations
 import contextlib
 import itertools
 import time
+import types
 from pathlib import Path
-from typing import Iterator
+from typing import Iterator, Optional
 
 import torch
 
-from ..config.schema import MainConfig
+from ..config.schema import MainConfig, parse_nm
 from ..data import create_loaders
 from ..models import create_model
 from ..ops import masking
+from ..serve.metrics import ServeMetrics
+from ..sparse import (
+    build_graph,
+    check_divisibility,
+    compact_params,
+    compact_train_state,
+    expand_train_state,
+    model_leaves,
+    plan_execution,
+)
+from ..sparse.graph import state_key
 from ..train import (
     DropoutNoise,
     TrainState,
@@ -81,9 +106,6 @@ def refuse_unported(cfg: MainConfig) -> None:
     """Raise on the options whose slice of the port is still to come."""
     ep = cfg.experiment_params
     unported = {
-        "experiment_params.compact_train": (ep.compact_train, "item 15"),
-        "experiment_params.compact_eval": (ep.compact_eval, "item 15"),
-        "experiment_params.nm_sparsity": (bool(ep.nm_sparsity), "item 15"),
         "experiment_params.num_devices > 1": (ep.num_devices > 1, "item 13"),
         "experiment_params.model_parallelism > 1": (ep.model_parallelism > 1, "item 13"),
         "experiment_params.profile_dir": (bool(ep.profile_dir), "item 17"),
@@ -152,6 +174,35 @@ class PruningHarness:
             mark_buffers_static(self.model)
             self._train_forward = compile_forward(train_forward, self.device)
             self._eval_forward = compile_forward(eval_forward, self.device)
+        # Sparse execution: the per-plan bundle (model, train step, eval
+        # forward) cached by (total_steps, width key, nm key); the
+        # compacted eval model cached by its width key; _plan_ctx holds the
+        # live plan, the full state it entered with and the dense step
+        # (None <=> training masked-dense). The plan reports and cache
+        # sizes go out on compact_metrics.
+        self._plan_step_cache: dict[tuple, tuple] = {}
+        self._plan_eval_cache: dict[tuple, tuple] = {}
+        self._plan_ctx: Optional[dict] = None
+        self.last_plan_report: Optional[dict] = None
+        self.last_compaction_report: Optional[dict] = None
+        if ep.nm_sparsity:
+            # Fail fast: a contraction width that does not divide into
+            # M-blocks would otherwise surface at the first prune, a level
+            # of training later.
+            check_divisibility(self.state.masks, parse_nm(ep.nm_sparsity)[1])
+        self.compact_metrics = ServeMetrics()
+
+    def _plan_forwards(self, model) -> tuple:
+        """(train, eval) forwards for a plan's ``model``: eager, or under
+        ``use_compile`` compiled from copies of the functions with code
+        objects of their own (dynamo keeps graphs and guards per code
+        object, so a plan's graphs go with its cache entry and never count
+        against the full model's recompile limit)."""
+        if not self.cfg.model_params.use_compile:
+            return train_forward, eval_forward
+        mark_buffers_static(model)
+        return tuple(compile_forward(_own_code(fn), self.device)
+                     for fn in (train_forward, eval_forward))
 
     # ------------------------------------------------------------------ tx
     def setup_level(self, epochs: int) -> None:
@@ -165,6 +216,8 @@ class PruningHarness:
             steps_per_epoch=self.steps_per_epoch,
             warmup_fraction=op.warmup_fraction,
         )
+        self._current_epochs = epochs
+        self._schedule = schedule
         self._train_step = make_train_step(schedule, self._train_forward, self.dropout_noise)
         self.state = reset_optimizer(self.state, self._make_optimizer)
 
@@ -237,11 +290,17 @@ class PruningHarness:
         return out
 
     def evaluate(self) -> dict:
-        """Full test pass; padded rows (label -1) count nowhere."""
+        """Full test pass; padded rows (label -1) count nowhere. With
+        ``compact_eval`` and no live plan, on the compacted model; with a
+        plan live, the plan's model is the level's compact evaluation."""
+        if self.cfg.experiment_params.compact_eval and self._plan_ctx is None:
+            return self._evaluate_compacted()
+        return self._evaluate_on(self.state.model, self.state.masks, self._eval_forward)
+
+    def _evaluate_on(self, model, masks, forward) -> dict:
         sums = None
         for batch in self.loaders.test_loader:
-            sums = add_sums(sums, eval_step(self.state.model, self.state.masks, batch,
-                                            self._eval_forward))
+            sums = add_sums(sums, eval_step(model, masks, batch, forward))
         if sums is None:
             raise RuntimeError("test loader yielded no batches")
         sums = {k: float(v) for k, v in sums.items()}
@@ -250,6 +309,139 @@ class PruningHarness:
             "test_loss": sums["loss_sum"] / n,
             "test_acc": 100.0 * sums["correct"] / n,
         }
+
+    def _evaluate_compacted(self) -> dict:
+        """Test pass on the physically compacted model: the live masks
+        analysed, dead channels sliced out of the mask-folded params
+        (``compact_params``), the small model (cached by its widths, so a
+        level's epochs reuse it) evaluates with all-ones masks, an exact
+        no-op on the folded params."""
+        params, stats = model_leaves(self.state.model)
+        res = compact_params(params, self.state.masks,
+                             build_graph(self.state.model, params), stats)
+        self.last_compaction_report = res.report
+        key = res.as_override_tuple()
+        if key not in self._plan_eval_cache:
+            self._evict_stale_plan_caches(key)
+            model = self._small_model(res.width_overrides)
+            self._plan_eval_cache[key] = (model, masking.make_masks(model),
+                                          self._plan_forwards(model)[1])
+            self._export_cache_gauges()
+        model, masks, forward = self._plan_eval_cache[key]
+        model.load_state_dict({state_key(p): t for p, t in {**res.params, **res.batch_stats}.items()})
+        return self._evaluate_on(model, masks, forward)
+
+    # ----------------------------------------------------- plan execution
+    def _small_model(self, width_overrides, nm_overrides=None):
+        """The architecture at compacted widths and/or with gathered N:M
+        hooks, on the device (weights come from the state it takes)."""
+        cfg = self.cfg
+        return create_model(
+            cfg.model_params.model_name,
+            num_classes=cfg.dataset_params.num_classes,
+            dataset_name=cfg.dataset_params.dataset_name,
+            compute_dtype=self.compute_dtype,
+            attention_impl=cfg.model_params.attention_impl,
+            image_size=cfg.dataset_params.image_size,
+            width_overrides=width_overrides,
+            nm_overrides=nm_overrides,
+        ).to(self.device)
+
+    def _enter_plan(self) -> None:
+        """Derive this level's ExecutionPlan from the live masks and move
+        the level onto it. When compaction commits, the full state at entry
+        is the anchor: at exit (and for any checkpoint written inside the
+        level) the trained small state is scattered back over it, so
+        removed coordinates come back as the dense run leaves them (exactly
+        for weight_decay 0 with the per-level fresh optimizer: a removed
+        coordinate sees zero gradient and zero momentum). An N:M plan moves
+        the state onto a model with the gathered modules at full widths."""
+        ep = self.cfg.experiment_params
+        if self._plan_ctx is not None:
+            return
+        compact_mode = "auto" if ep.compact_train else "off"
+        nm_mode = "auto" if ep.nm_sparsity else "off"
+        if compact_mode == "off" and nm_mode == "off":
+            return
+        pl = self.cfg.planner
+        params, stats = model_leaves(self.state.model)
+        plan = plan_execution(
+            self.state.model, params, self.state.masks, stats,
+            compact=compact_mode,
+            nm=nm_mode,
+            compact_min_savings=pl.compact_min_savings,
+            nm_min_axis_savings=pl.nm_min_axis_savings,
+            autotune=pl.autotune,
+        )
+        self.last_plan_report = plan.report
+        self.compact_metrics.record_plan(plan.report)
+        if plan.kind == "masked":
+            return  # neither backend pays at this level
+        if plan.compaction is not None:
+            self.last_compaction_report = plan.compaction.report
+        width_key, nm_key = plan.width_key(), plan.nm_key()
+        key = (self._current_epochs * self.steps_per_epoch, width_key, nm_key)
+        self._evict_stale_plan_caches(width_key, nm_key)
+        if key not in self._plan_step_cache:
+            model = self._small_model(plan.width_overrides, plan.nm_overrides)
+            forward, eval_fwd = self._plan_forwards(model)
+            self._plan_step_cache[key] = (
+                model, make_train_step(self._schedule, forward, self.dropout_noise), eval_fwd)
+        self._export_cache_gauges()
+        model, train_step, eval_fwd = self._plan_step_cache[key]
+        self._plan_ctx = {"plan": plan, "anchor": self.state,
+                          "dense": (self._train_step, self._eval_forward)}
+        self.state = compact_train_state(self.state, plan.compaction, model, self._make_optimizer)
+        self._train_step, self._eval_forward = train_step, eval_fwd
+        r = plan.report
+        parts = []
+        if plan.compaction is not None:
+            comp = r["compaction"]
+            parts.append(f"params {comp['params_before']:,} -> {comp['params_after']:,} "
+                         f"({r['backend_counts']['compact_spaces']} spaces)")
+        if plan.nm is not None:
+            parts.append(f"{r['backend_counts']['nm_layers']} layers gathered "
+                         f"(coverage {r['coverage_frac']:.2f})")
+        print(f"[plan] level runs {plan.kind}: " + ", ".join(parts), flush=True)
+
+    def _exit_plan(self) -> None:
+        """Back to full coordinates and the masked-dense step. Idempotent;
+        called in a ``finally``, so a raising epoch cannot leave the
+        harness on a plan's shapes."""
+        ctx = self._plan_ctx
+        if ctx is None:
+            return
+        self._plan_ctx = None
+        self._train_step, self._eval_forward = ctx["dense"]
+        self.state = expand_train_state(self.state, ctx["plan"].compaction, ctx["anchor"])
+
+    def _full_state(self) -> TrainState:
+        """The live state in full coordinates: what every checkpoint
+        written inside a level (rewind artifacts, the mid-level slot)
+        holds, so a restore never learns the level ran on a plan."""
+        ctx = self._plan_ctx
+        if ctx is None:
+            return self.state
+        return expand_train_state(self.state, ctx["plan"].compaction, ctx["anchor"])
+
+    def _full_masks(self):
+        """Full-coordinate masks for the metric rows (masks never change
+        inside a level: while on a plan, the anchor's are the current)."""
+        return self.state.masks if self._plan_ctx is None else self._plan_ctx["anchor"].masks
+
+    def _evict_stale_plan_caches(self, width_key: tuple, nm_key: Optional[tuple] = None) -> None:
+        """The ladder only descends: bundles for another plan signature
+        are never hit again (their models and compiled graphs would pin
+        device memory). ``nm_key=None`` (compact eval) evicts on widths."""
+        for k in [k for k in self._plan_step_cache
+                  if k[1] != width_key or (nm_key is not None and k[2] != nm_key)]:
+            del self._plan_step_cache[k]
+        for k in [k for k in self._plan_eval_cache if k != width_key]:
+            del self._plan_eval_cache[k]
+
+    def _export_cache_gauges(self) -> None:
+        self.compact_metrics.set_gauge("plan_step_cache_size", len(self._plan_step_cache))
+        self.compact_metrics.set_gauge("plan_eval_cache_size", len(self._plan_eval_cache))
 
     # --------------------------------------------------------------- level
     def train_one_level(self, epochs_per_level: int, level: int) -> dict:
@@ -266,12 +458,18 @@ class PruningHarness:
 
         ckpt_every = self.cfg.experiment_params.checkpoint_every_epochs
         start_epoch, max_test_acc = self._enter_mid_level(level) if ckpt_every else (0, 0.0)
-        for epoch in range(start_epoch, epochs_per_level):
-            row = {"level": level, "epoch": epoch}
-            max_test_acc = self._run_epoch(row, max_test_acc, snapshot_ok=level == 0)
-            # The level's last epoch is saved as model_level_{level}.
-            if ckpt_every and (epoch + 1) % ckpt_every == 0 and epoch + 1 < epochs_per_level:
-                self._save_mid_level(level, epoch, max_test_acc)
+        # After any mid-level restore: the plan is derived from (and
+        # anchored at) the restored full state.
+        self._enter_plan()
+        try:
+            for epoch in range(start_epoch, epochs_per_level):
+                row = {"level": level, "epoch": epoch}
+                max_test_acc = self._run_epoch(row, max_test_acc, snapshot_ok=level == 0)
+                # The level's last epoch is saved as model_level_{level}.
+                if ckpt_every and (epoch + 1) % ckpt_every == 0 and epoch + 1 < epochs_per_level:
+                    self._save_mid_level(level, epoch, max_test_acc)
+        finally:
+            self._exit_plan()
 
         return self.metrics.finish_level(
             level,
@@ -299,7 +497,7 @@ class PruningHarness:
             # per host).
             self.ckpts.save_mid_level_stream(level, epoch, get_stream(), 0)
             meta["train_loader_stream_hosts"] = 1
-        self.ckpts.save_mid_level(level, epoch, self.state, meta=meta)
+        self.ckpts.save_mid_level(level, epoch, self._full_state(), meta=meta)
 
     def _run_epoch(self, row: dict, max_test_acc: float, snapshot_ok: bool) -> float:
         """Train and evaluate one epoch, log ``row`` (which holds its level
@@ -310,12 +508,13 @@ class PruningHarness:
         row.update(self.evaluate())
         max_test_acc = max(max_test_acc, row["test_acc"])
         row["max_test_acc"] = max_test_acc
-        row["sparsity"] = masking.overall_sparsity(self.state.masks)
+        row["sparsity"] = masking.overall_sparsity(self._full_masks())
         self.metrics.log_epoch(row)
         self._log_console(row)
         if snapshot_ok and row["epoch"] == self.cfg.pruning_params.rewind_epoch:
-            self.ckpts.save_model(MODEL_REWIND, self.state.model_tree())
-            self.ckpts.save_optimizer(OPTIMIZER_REWIND, self.state.optimizer)
+            full = self._full_state()
+            self.ckpts.save_model(MODEL_REWIND, full.model_tree())
+            self.ckpts.save_optimizer(OPTIMIZER_REWIND, full.optimizer)
         return max_test_acc
 
     def _enter_mid_level(self, level: int) -> tuple[int, float]:
@@ -419,3 +618,9 @@ class PruningHarness:
                " (waits s: " + ", ".join(f"{k[:-7]} {row[k]:.3f}" for k in PIPELINE_STAGES) + ")"),
             flush=True,
         )
+
+
+def _own_code(fn: types.FunctionType) -> types.FunctionType:
+    """A copy of ``fn`` with a code object of its own."""
+    return types.FunctionType(fn.__code__.replace(), fn.__globals__, fn.__name__,
+                              fn.__defaults__, fn.__closure__)

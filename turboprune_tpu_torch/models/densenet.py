@@ -29,21 +29,20 @@ from torch import nn
 
 from .resnet import Conv, FlaxBatchNorm2d
 
-_SPARSE_SLICE = (
-    "is part of the sparse-execution slice of the port (ROADMAP.md, queue A, "
-    "item 15: compaction, N:M and the planner), not yet ported"
-)
-
-
 class DenseLayer(nn.Module):
+    """``bottleneck_channels`` / ``growth_channels``: compacted widths of
+    ``conv1``'s and ``conv2``'s outputs (None: 4 x growth and growth)."""
+
     def __init__(self, in_features: int, growth_rate: int, conv, norm,
-                 bottleneck_width: int = 4):
+                 bottleneck_width: int = 4, bottleneck_channels: Optional[int] = None,
+                 growth_channels: Optional[int] = None):
         super().__init__()
-        inner = bottleneck_width * growth_rate
+        inner = bottleneck_channels or bottleneck_width * growth_rate
+        self.out_channels = growth_channels or growth_rate
         self.norm1 = norm(in_features)
         self.conv1 = conv(in_features, inner, 1)
         self.norm2 = norm(inner)
-        self.conv2 = conv(inner, growth_rate, 3)
+        self.conv2 = conv(inner, self.out_channels, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv1(F.relu(self.norm1(x)))
@@ -62,6 +61,12 @@ class Transition(nn.Module):
 
 
 class DenseNet(nn.Module):
+    """``width_overrides`` ("conv0" / "denseblock{i}_layer{j}/conv{1,2}" /
+    "transition{i}/conv" -> kept channels) builds the model at compacted
+    widths, the concatenation carrying each segment's kept channels;
+    ``nm_overrides`` ("classifier" -> (kept_in, kept_out)) gathers the
+    classifier (sparse/). Module names stay the same."""
+
     def __init__(
         self,
         block_sizes: Sequence[int],
@@ -76,13 +81,13 @@ class DenseNet(nn.Module):
         nm_overrides: Optional[Any] = None,
     ):
         super().__init__()
-        if width_overrides:
-            raise NotImplementedError(f"width_overrides (compaction) {_SPARSE_SLICE}")
-        if nm_overrides:
-            raise NotImplementedError(f"nm_overrides (N:M execution) {_SPARSE_SLICE}")
         self.num_classes = num_classes
         self.cifar_stem = cifar_stem
         self.dtype = dtype
+        self.block_sizes = tuple(block_sizes)
+        self.bn_epsilon = bn_epsilon
+        ov = dict(width_overrides or {})
+        nm_classifier = dict(nm_overrides or {}).get("classifier")
 
         def conv(cin, cout, k, stride=1, padding=None):
             return Conv(cin, cout, k, stride, padding, dtype=dtype)
@@ -90,27 +95,41 @@ class DenseNet(nn.Module):
         def norm(features):
             return FlaxBatchNorm2d(features, bn_momentum, bn_epsilon, dtype)
 
+        stem = ov.get("conv0", init_features)
         if cifar_stem:
-            self.conv0 = conv(3, init_features, 3)
+            self.conv0 = conv(3, stem, 3)
         else:
-            self.conv0 = conv(3, init_features, 7, 2, padding=3)
-        self.norm0 = norm(init_features)
+            self.conv0 = conv(3, stem, 7, 2, padding=3)
+        self.norm0 = norm(stem)
+        # ``features``: the dense widths' count, which names each
+        # transition's width; ``width``: the concatenation's actual width.
         features = init_features
+        width = stem
         self.layer_names: list[str] = []
         for i, layers in enumerate(block_sizes):
             for j in range(layers):
                 name = f"denseblock{i + 1}_layer{j + 1}"
-                self.add_module(name, DenseLayer(features + j * growth_rate, growth_rate,
-                                                 conv, norm))
+                layer = DenseLayer(width, growth_rate, conv, norm,
+                                   bottleneck_channels=ov.get(f"{name}/conv1"),
+                                   growth_channels=ov.get(f"{name}/conv2"))
+                self.add_module(name, layer)
                 self.layer_names.append(name)
+                width += layer.out_channels
             features += layers * growth_rate
             if i + 1 < len(block_sizes):
                 name = f"transition{i + 1}"
-                self.add_module(name, Transition(features, features // 2, conv, norm))
-                self.layer_names.append(name)
                 features //= 2  # torchvision's 0.5 compression
-        self.norm_final = norm(features)
-        self.classifier = nn.Linear(features, num_classes)
+                out = ov.get(f"{name}/conv", features)
+                self.add_module(name, Transition(width, out, conv, norm))
+                self.layer_names.append(name)
+                width = out
+        self.norm_final = norm(width)
+        if nm_classifier is not None:
+            from ..sparse.nm_execute import NMDense
+
+            self.classifier = NMDense(width, num_classes, *nm_classifier)
+        else:
+            self.classifier = nn.Linear(width, num_classes)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "DenseNet":

@@ -32,12 +32,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-_SPARSE_SLICE = (
-    "is part of the sparse-execution slice of the port (ROADMAP.md, queue A, "
-    "item 15: compaction, N:M and the planner), not yet ported"
-)
-
-
 def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
     """(low, high) padding of one spatial axis under flax's ``SAME``:
     out = ceil(in / stride), total = max((out - 1) * stride + k - in, 0),
@@ -133,13 +127,19 @@ class FlaxBatchNorm2d(nn.Module):
 
 
 class BasicBlock(nn.Module):
+    """``inner_widths``: the compacted width of ``Conv_0``'s output, the
+    block's only internal channel axis (``Conv_1`` produces the block
+    output, shared through the residual add)."""
+
     expansion = 1
 
-    def __init__(self, in_planes: int, filters: int, stride: int, conv, norm):
+    def __init__(self, in_planes: int, filters: int, stride: int, conv, norm,
+                 inner_widths: Optional[tuple] = None):
         super().__init__()
-        self.Conv_0 = conv(in_planes, filters, 3, stride)
-        self.BatchNorm_0 = norm(filters)
-        self.Conv_1 = conv(filters, filters, 3)
+        w0 = (inner_widths or (None,))[0] or filters
+        self.Conv_0 = conv(in_planes, w0, 3, stride)
+        self.BatchNorm_0 = norm(w0)
+        self.Conv_1 = conv(w0, filters, 3)
         self.BatchNorm_1 = norm(filters)
         self.has_downsample = stride != 1 or in_planes != filters * self.expansion
         if self.has_downsample:
@@ -157,7 +157,11 @@ class BasicBlock(nn.Module):
 
 class Bottleneck(nn.Module):
     """ResNet v1.5: the stride sits on the 3x3 ``Conv_1``. Wide variants
-    multiply the inner width; the block output stays ``filters * 4``."""
+    multiply the inner width; the block output stays ``filters * 4``.
+    ``inner_widths``: compacted widths of ``Conv_0``'s and ``Conv_1``'s
+    outputs (the expansion conv's is residual-shared); ``nm_conv0``:
+    (kept_in, kept_out) index maps that make ``Conv_0`` a gathered
+    ``sparse.nm_execute.NMConv1x1``."""
 
     expansion = 4
 
@@ -169,15 +173,19 @@ class Bottleneck(nn.Module):
         conv,
         norm,
         inner_multiplier: float = 1.0,
+        inner_widths: Optional[tuple] = None,
+        nm_conv0: Optional[tuple] = None,
     ):
         super().__init__()
         inner = int(filters * inner_multiplier)
         out = filters * self.expansion
-        self.Conv_0 = conv(in_planes, inner, 1)
-        self.BatchNorm_0 = norm(inner)
-        self.Conv_1 = conv(inner, inner, 3, stride)
-        self.BatchNorm_1 = norm(inner)
-        self.Conv_2 = conv(inner, out, 1)
+        iw = inner_widths or (None, None)
+        w0, w1 = iw[0] or inner, iw[1] or inner
+        self.Conv_0 = conv(in_planes, w0, 1, nm=nm_conv0)
+        self.BatchNorm_0 = norm(w0)
+        self.Conv_1 = conv(w0, w1, 3, stride)
+        self.BatchNorm_1 = norm(w1)
+        self.Conv_2 = conv(w1, out, 1)
         self.BatchNorm_2 = norm(out)
         self.has_downsample = stride != 1 or in_planes != out
         if self.has_downsample:
@@ -196,7 +204,11 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """torchvision topology; ``cifar_stem`` is the reference's CIFAR
-    surgery (3x3 stride-1 ``conv1``, no max-pool)."""
+    surgery (3x3 stride-1 ``conv1``, no max-pool). ``width_overrides``
+    ("layer{i}_{j}/Conv_{k}" -> kept channels of a block-internal axis)
+    and ``nm_overrides`` ("fc", and for Bottleneck blocks
+    "layer{i}_{j}/Conv_0" -> (kept_in, kept_out)) are the sparse
+    execution's (sparse/); module names stay the same."""
 
     def __init__(
         self,
@@ -211,17 +223,22 @@ class ResNet(nn.Module):
         nm_overrides: Optional[Any] = None,
     ):
         super().__init__()
-        if width_overrides:
-            raise NotImplementedError(f"width_overrides (compaction) {_SPARSE_SLICE}")
-        if nm_overrides:
-            raise NotImplementedError(f"nm_overrides (N:M execution) {_SPARSE_SLICE}")
         if inner_multiplier != 1.0 and block_cls is not Bottleneck:
             raise ValueError("inner_multiplier needs Bottleneck blocks")
         self.num_classes = num_classes
         self.cifar_stem = cifar_stem
         self.dtype = dtype
+        self.stage_sizes = tuple(stage_sizes)
+        self.block_cls = block_cls
+        self.bn_epsilon = 1e-5
+        ov = dict(width_overrides or {})
+        nv = dict(nm_overrides or {})
 
-        def conv(cin, cout, k, stride=1, padding=None):
+        def conv(cin, cout, k, stride=1, padding=None, nm=None):
+            if nm is not None:  # gathered N:M 1x1 conv (sparse/nm_execute.py)
+                from ..sparse.nm_execute import NMConv1x1
+
+                return NMConv1x1(cin, cout, *nm, stride=stride, dtype=dtype)
             return Conv(cin, cout, k, stride, padding, dtype=dtype)
 
         def norm(features):
@@ -239,11 +256,22 @@ class ResNet(nn.Module):
             for j in range(count):
                 stride = 2 if i > 0 and j == 0 else 1
                 name = f"layer{i + 1}_{j}"
-                block = block_cls(in_planes, width * 2**i, stride, conv, norm, **block_kw)
+                inner_widths = (ov.get(f"{name}/Conv_0"), ov.get(f"{name}/Conv_1"))
+                sparse_kw = {"inner_widths": inner_widths} if any(inner_widths) else {}
+                if f"{name}/Conv_0" in nv:
+                    # Only Bottleneck models get Conv_0 hooks from the planner.
+                    sparse_kw["nm_conv0"] = nv[f"{name}/Conv_0"]
+                block = block_cls(in_planes, width * 2**i, stride, conv, norm,
+                                  **block_kw, **sparse_kw)
                 self.add_module(name, block)
                 self.block_names.append(name)
                 in_planes = width * 2**i * block_cls.expansion
-        self.fc = nn.Linear(in_planes, num_classes)
+        if "fc" in nv:
+            from ..sparse.nm_execute import NMDense
+
+            self.fc = NMDense(in_planes, num_classes, *nv["fc"])
+        else:
+            self.fc = nn.Linear(in_planes, num_classes)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "ResNet":

@@ -16,7 +16,12 @@ bridge needs no permutation.
 
 Dropout (after ``fc0`` and ``fc1``) draws nothing itself: in training the
 caller hands the forward the uniforms of ``dropout_shapes(n)``
-(``models/dropout.py``).
+(``models/dropout.py``), at the widths this model was built with.
+
+``width_overrides`` ("conv{k}" / "fc0" / "fc1" -> kept channels) builds
+the model at compacted widths and ``nm_overrides`` ("fc0" | "fc1" | "fc2"
+-> (kept_in, kept_out) index maps) puts ``sparse.nm_execute.NMDense`` in
+those layers (sparse/); module names stay the same.
 """
 
 from __future__ import annotations
@@ -40,12 +45,6 @@ VGG_CFGS = {
     "vgg19": [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
               512, 512, 512, 512, "M", 512, 512, 512, 512, "M"],
 }
-
-_SPARSE_SLICE = (
-    "is part of the sparse-execution slice of the port (ROADMAP.md, queue A, "
-    "item 15: compaction, N:M and the planner), not yet ported"
-)
-
 
 def adaptive_avg_pool(x: torch.Tensor, out_hw: int = 7) -> torch.Tensor:
     """torch ``AdaptiveAvgPool2d`` bins on NCHW ``x``, as the JAX package
@@ -90,28 +89,39 @@ class VGG(nn.Module):
         nm_overrides: Optional[Any] = None,
     ):
         super().__init__()
-        if width_overrides:
-            raise NotImplementedError(f"width_overrides (compaction) {_SPARSE_SLICE}")
-        if nm_overrides:
-            raise NotImplementedError(f"nm_overrides (N:M execution) {_SPARSE_SLICE}")
         self.cfg = list(cfg)
         self.num_classes = num_classes
         self.batch_norm = batch_norm
         self.dtype = dtype
         self.dropout_rate = dropout_rate
+        self.bn_epsilon = bn_epsilon
         self.fc_features = tuple(fc_features)
+        ov = dict(width_overrides or {})
+        nv = dict(nm_overrides or {})
         cin, k = 3, 0
         for v in self.cfg:
             if v == "M":
                 continue
+            v = ov.get(f"conv{k}", v)
             self.add_module(f"conv{k}", ConvBias(cin, v, dtype))
             if batch_norm:
                 self.add_module(f"bn{k}", FlaxBatchNorm2d(v, bn_momentum, bn_epsilon, dtype))
             cin, k = v, k + 1
         self.num_convs = k
-        self.fc0 = nn.Linear(cin * 49, self.fc_features[0])
-        self.fc1 = nn.Linear(self.fc_features[0], self.fc_features[1])
-        self.fc2 = nn.Linear(self.fc_features[1], num_classes)
+
+        def fc(name: str, cin: int, cout: int) -> nn.Linear:
+            hook = nv.get(name)
+            if hook is None:
+                return nn.Linear(cin, cout)
+            from ..sparse.nm_execute import NMDense
+
+            return NMDense(cin, cout, *hook)
+
+        width0 = ov.get("fc0", self.fc_features[0])
+        width1 = ov.get("fc1", self.fc_features[1])
+        self.fc0 = fc("fc0", cin * 49, width0)
+        self.fc1 = fc("fc1", width0, width1)
+        self.fc2 = fc("fc2", width1, num_classes)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "VGG":
@@ -137,7 +147,7 @@ class VGG(nn.Module):
         the order it uses them); empty when the rate is 0."""
         if self.dropout_rate == 0.0:
             return []
-        return [(n, self.fc_features[0]), (n, self.fc_features[1])]
+        return [(n, self.fc0.out_features), (n, self.fc1.out_features)]
 
     def forward(self, x: torch.Tensor, noise: Optional[list] = None) -> torch.Tensor:
         if x.shape[1] < 32 or x.shape[2] < 32:
@@ -159,7 +169,9 @@ class VGG(nn.Module):
             k += 1
         x = adaptive_avg_pool(x, 7)
         # (H, W, C) order, as flax flattens NHWC; a view under channels_last.
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).float()
+        # The classifier runs in fp32 (float64 in a float64 model).
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        x = x.to(torch.promote_types(self.dtype, torch.float32))
         x = dropout(F.relu(self.fc0(x)), self.dropout_rate, noise0)
         x = dropout(F.relu(self.fc1(x)), self.dropout_rate, noise1)
         return self.fc2(x)

@@ -32,12 +32,6 @@ from .dropout import dropout, forward_noise
 
 ATTENTION_IMPLS = ("dense", "ring", "flash")
 
-_SPARSE_SLICE = (
-    "is part of the sparse-execution slice of the port (ROADMAP.md, queue A: "
-    "compaction, N:M and the planner), not yet ported"
-)
-
-
 class Dense(nn.Linear):
     """``nn.Dense``/``DenseGeneral`` with flax's dtype handling: fp32
     params, input and weights cast to ``dtype`` for the product."""
@@ -128,11 +122,22 @@ class SelfAttention(nn.Module):
         return self.out(out.reshape(n, s, d))
 
 
+def _dense(in_features: int, out_features: int, dtype, nm: Optional[tuple]) -> nn.Linear:
+    """``Dense``, or with an N:M hook (kept_in, kept_out) the gathered
+    ``sparse.nm_execute.NMDense`` under the same name."""
+    if nm is None:
+        return Dense(in_features, out_features, dtype)
+    from ..sparse.nm_execute import NMDense
+
+    return NMDense(in_features, out_features, *nm, dtype=dtype)
+
+
 class MlpBlock(nn.Module):
-    def __init__(self, dim: int, hidden: int, dropout_rate: float, dtype):
+    def __init__(self, dim: int, hidden: int, dropout_rate: float, dtype,
+                 nm_fc1: Optional[tuple] = None, nm_fc2: Optional[tuple] = None):
         super().__init__()
-        self.fc1 = Dense(dim, hidden, dtype)
-        self.fc2 = Dense(hidden, dim, dtype)
+        self.fc1 = _dense(dim, hidden, dtype, nm_fc1)
+        self.fc2 = _dense(hidden, dim, dtype, nm_fc2)
         self.dropout_rate = dropout_rate
 
     def forward(self, x: torch.Tensor, noise: Optional[list] = None) -> torch.Tensor:
@@ -150,14 +155,29 @@ class EncoderBlock(nn.Module):
         dropout_rate: float = 0.0,
         dtype=torch.float32,
         attention_impl: str = "dense",
+        mlp_hidden: Optional[int] = None,
+        nm: Optional[dict] = None,
     ):
         # No attention dropout: the JAX model never sets it (the
-        # reference's DeiT configs use attn_drop=0).
+        # reference's DeiT configs use attn_drop=0). ``mlp_hidden``: a
+        # compacted MLP width; ``nm``: the block's N:M hooks keyed
+        # "attn/query" ... "mlp/fc2" (projection hooks under dense
+        # attention only).
         super().__init__()
+        nm = nm or {}
+        attn_nm = {k.split("/")[1]: v for k, v in nm.items() if k.startswith("attn/")}
         self.norm1 = LayerNorm(dim)
-        self.attn = SelfAttention(dim, num_heads, dtype, attention_impl)
+        if attn_nm:
+            if attention_impl != "dense":
+                raise ValueError("N:M attention projections need attention_impl='dense'")
+            from ..sparse.nm_execute import NMSelfAttention
+
+            self.attn = NMSelfAttention(dim, num_heads, dtype, attn_nm)
+        else:
+            self.attn = SelfAttention(dim, num_heads, dtype, attention_impl)
         self.norm2 = LayerNorm(dim)
-        self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dropout_rate, dtype)
+        self.mlp = MlpBlock(dim, mlp_hidden or int(dim * mlp_ratio), dropout_rate, dtype,
+                            nm.get("mlp/fc1"), nm.get("mlp/fc2"))
 
     def forward(self, x: torch.Tensor, noise: Optional[list] = None) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))
@@ -167,7 +187,12 @@ class EncoderBlock(nn.Module):
 class VisionTransformer(nn.Module):
     """DeiT. ``image_size`` fixes the patch count (flax infers it at init);
     ``attention_impl="ring"`` runs the param-identical dense attention,
-    since the port serves on one device, as the JAX engine does."""
+    since the port serves on one device, as the JAX engine does.
+    ``width_overrides`` ("block{i}/mlp/fc1" -> kept hidden width) and
+    ``nm_overrides`` ("block{i}/mlp/fc1" | "block{i}/mlp/fc2" | "head" |
+    "head_dist", and "block{i}/attn/{query,key,value,out}" under dense
+    attention -> (kept_in, kept_out)) are the sparse execution's
+    (sparse/); module names stay the same."""
 
     def __init__(
         self,
@@ -187,10 +212,8 @@ class VisionTransformer(nn.Module):
         nm_overrides: Optional[Any] = None,
     ):
         super().__init__()
-        if width_overrides:
-            raise NotImplementedError(f"width_overrides (compaction) {_SPARSE_SLICE}")
-        if nm_overrides:
-            raise NotImplementedError(f"nm_overrides (N:M execution) {_SPARSE_SLICE}")
+        ov = dict(width_overrides or {})
+        nv = dict(nm_overrides or {})
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl={attention_impl!r} not in {ATTENTION_IMPLS}")
         if attention_impl == "ring":
@@ -221,12 +244,15 @@ class VisionTransformer(nn.Module):
                     dropout_rate,
                     dtype=dtype,
                     attention_impl=attention_impl,
+                    mlp_hidden=ov.get(f"block{i}/mlp/fc1"),
+                    nm={k[len(f"block{i}/"):]: v for k, v in nv.items()
+                        if k.startswith(f"block{i}/")},
                 ),
             )
         self.norm = LayerNorm(embed_dim)
-        self.head = Dense(embed_dim, num_classes, torch.float32)
+        self.head = _dense(embed_dim, num_classes, torch.float32, nv.get("head"))
         if distilled:
-            self.head_dist = Dense(embed_dim, num_classes, torch.float32)
+            self.head_dist = _dense(embed_dim, num_classes, torch.float32, nv.get("head_dist"))
 
     def blocks(self) -> list[EncoderBlock]:
         return [getattr(self, f"block{i}") for i in range(self.depth)]
@@ -258,8 +284,10 @@ class VisionTransformer(nn.Module):
         if self.dropout_rate == 0.0:
             return []
         s, d = self.pos_embed.shape[1], self.embed_dim
-        hidden = self.block0.mlp.fc1.out_features
-        return [(n, s, d)] + [(n, s, hidden), (n, s, d)] * self.depth
+        shapes = [(n, s, d)]
+        for block in self.blocks():
+            shapes += [(n, s, block.mlp.fc1.out_features), (n, s, d)]
+        return shapes
 
     def forward(self, x: torch.Tensor, noise: Optional[list] = None) -> torch.Tensor:
         noise = forward_noise(self, noise)

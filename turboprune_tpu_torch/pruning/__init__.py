@@ -13,6 +13,7 @@ from .criteria import (
     prune_er_balanced,
     prune_er_erk,
     prune_mag,
+    prune_nm,
     prune_random_balanced,
     prune_random_erk,
     prune_snip,
@@ -32,7 +33,6 @@ RANDOM_METHODS = {
     "er_erk": prune_er_erk,
     "er_balanced": prune_er_balanced,
 }
-NOT_YET_PORTED = {"nm": "ROADMAP.md queue A, item 15"}
 
 
 def prune_the_model(
@@ -42,16 +42,25 @@ def prune_the_model(
     density: float,
     generator: Optional[torch.Generator] = None,
     batch: Optional[tuple] = None,
+    nm: Optional[tuple] = None,
 ) -> Masks:
     """Dispatch a pruning criterion on ``model``'s current weights; returns
     the new masks. The random criteria draw from ``generator``, and so
     does the dropout of snip's and synflow's forward; ``batch`` (images,
     labels) is required for snip (real data) and synflow (the shape and
-    dtype of its all-ones input)."""
+    dtype of its all-ones input); ``nm`` = (n, m, transposable) for the
+    "nm" criterion (from ``experiment_params.nm_sparsity``)."""
     if method == "just dont":
         return masks
     if method == "mag":
         return prune_mag(model.state_dict(), masks, density)
+    if method == "nm":
+        if nm is None:
+            raise ValueError(
+                "prune_method 'nm' needs nm=(n, m, transposable) — set "
+                "experiment_params.nm_sparsity"
+            )
+        return prune_nm(model.state_dict(), masks, density, *nm)
     if method in RANDOM_METHODS:
         if generator is None:
             raise ValueError(f"{method} pruning requires a generator")
@@ -62,11 +71,6 @@ def prune_the_model(
         if method == "snip":
             return prune_snip(model, masks, density, batch, generator)
         return prune_synflow(model, masks, density, batch[0], generator)
-    if method in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"pruning method {method!r} is not yet ported to "
-            f"turboprune_tpu_torch ({NOT_YET_PORTED[method]})"
-        )
     raise ValueError(f"Unknown pruning method: {method}")
 
 
@@ -79,6 +83,7 @@ __all__ = [
     "prune_er_balanced",
     "prune_er_erk",
     "prune_mag",
+    "prune_nm",
     "prune_random_balanced",
     "prune_random_erk",
     "prune_snip",

@@ -69,6 +69,18 @@ def prune_mag(params: Mapping[str, torch.Tensor], masks: Masks, density: float) 
     return global_threshold_mask(scores, masks, density)
 
 
+def prune_nm(params: Mapping[str, torch.Tensor], masks: Masks, density: float,
+             n: int, m: int, transposable: bool = True) -> Masks:
+    """Global magnitude step, then each mask snapped to its most
+    magnitude-preserving separable N:M pattern (sparse/nm.py). The
+    projection is monotone, so the ladder never resurrects a weight; the
+    density lands below the ladder's by the projection's cut."""
+    from ..sparse.nm import project_masks
+
+    projected, _ = project_masks(params, prune_mag(params, masks, density), n, m, transposable)
+    return projected
+
+
 def prune_random_erk(masks: Masks, density: float, generator: torch.Generator) -> Masks:
     return per_layer_threshold_mask(
         _random_normal_scores(masks, generator), erk_densities(masks, density))

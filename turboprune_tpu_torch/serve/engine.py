@@ -78,8 +78,9 @@ class InferenceEngine:
         if backend != "masked":
             raise NotImplementedError(
                 f"serving backend {backend!r} is part of the sparse-execution "
-                "slice of the port (ROADMAP.md, queue A: compaction, N:M and "
-                "the planner), not yet ported — serve with backend='masked'"
+                "slice's serving half (ROADMAP.md, queue A, item 16: the "
+                "planner's serving backends), not yet ported — serve with "
+                "backend='masked'"
             )
         self.backend = backend
         self.device = resolve_device(device)

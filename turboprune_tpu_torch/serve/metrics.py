@@ -14,7 +14,9 @@ latencies rather than from the histogram buckets: the window gives exact
 recent-traffic quantiles, while the cumulative buckets remain the
 long-horizon Prometheus view.
 
-The fleet's labelled multi-model hub is not ported yet (ROADMAP.md).
+The harness exports its execution plans here too (``record_plan``, the
+``plan_*`` gauges). The fleet's labelled multi-model hub is not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -51,6 +53,23 @@ class ServeMetrics:
     def set_gauge(self, name: str, value: float) -> None:
         with self._lock:
             self._gauges[name] = float(value)
+
+    def record_plan(self, report: dict) -> None:
+        """Export an ExecutionPlan report (sparse/plan.py) as the ``plan_*``
+        gauges: per-layer backend counts, N:M coverage and, where
+        compaction was planned, the dense and compacted parameter and
+        channel counts: the size and routing the process actually runs."""
+        counts = report.get("backend_counts", {})
+        self.set_gauge("plan_layers_nm", counts.get("nm_layers", 0))
+        self.set_gauge("plan_layers_dense", counts.get("dense_layers", 0))
+        self.set_gauge("plan_spaces_compacted", counts.get("compact_spaces", 0))
+        self.set_gauge("plan_coverage_frac", report.get("coverage_frac", 0.0))
+        comp = report.get("compaction") or {}
+        if "params_before" in comp:
+            self.set_gauge("plan_params_dense", comp["params_before"])
+            self.set_gauge("plan_params_compacted", comp["params_after"])
+            self.set_gauge("plan_channels_dense", comp["channels_before"])
+            self.set_gauge("plan_channels_compacted", comp["channels_after"])
 
     def bucket_warm(self) -> None:
         self.inc("bucket_warm_runs_total")

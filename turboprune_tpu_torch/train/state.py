@@ -31,10 +31,14 @@ class TrainState:
         the parameters under ``params``, the masks, and the buffers (the
         BatchNorm running statistics; none for a ViT) under
         ``batch_stats``, each keyed by its ``state_dict`` name."""
+        params = {k: v.detach() for k, v in self.model.named_parameters()}
         return {
-            "params": {k: v.detach() for k, v in self.model.named_parameters()},
+            "params": params,
             "masks": self.masks,
-            "batch_stats": {k: v.detach() for k, v in self.model.named_buffers()},
+            # The state_dict's buffers: not the N:M index maps, which are
+            # buffers outside it.
+            "batch_stats": {k: v.detach() for k, v in self.model.state_dict(keep_vars=True).items()
+                            if k not in params},
         }
 
 
