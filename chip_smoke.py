@@ -38,7 +38,7 @@ result line):
             from the unrounded o; flash_backward_plain reproduces them);
             time a step and read its device time with the profiler.
 5. resnet   conf/cifar10_imp.yaml as shipped (ResNet-18, CIFAR stem, bf16,
-            batch 512) at CIFAR-10's sizes on synthetic data, one epoch a
+            batch 512) on 10,240 / 2,048 synthetic images, one epoch a
             level: two IMP levels through run_experiment_torch's main (the
             densities, monotone masks, the rewind of params and BatchNorm
             statistics to model_init bit for bit, evaluations on the
@@ -75,7 +75,9 @@ result line):
             compiled: K1/K2/K3 counted by the profiler (12 per forward /
             backward over the run, and per replayed step), the step's time
             and device work against eager, one bf16 step's gradient against
-            eager's.
+            eager's. The timed steps and the compiled gradients run on the
+            two runs' own harnesses, whose compiled forwards they reuse (no
+            new dynamo graph, checked), so each model compiles once.
 
 9. imagenet conf/imagenet_imp_tpk.yaml (ResNet-50 at 224, 1000 classes, bf16)
             fed by the native .tpk loader through the prefetch engine
@@ -107,7 +109,7 @@ result line):
             tier 1 of the mid-level slot (a preempted run resumed on the
             uninterrupted run's batches, device hashes); model_params=mp_vgg16
             and mp_densenet121 at the batch their measured peak memory allows:
-            two levels of 4 steps, the step's time, busy time by kind, FLOP
+            two levels of 2 steps, the step's time, busy time by kind, FLOP
             bound and peak memory.
 11. sparse  the sparse execution (runs after imagenet_folder): imagenet_imp
             with VGG-16-BN at 224 (bf16, batch 256, synthetic data, two
@@ -126,8 +128,26 @@ result line):
             gradient against masked-dense, the step's time beside
             masked-dense's; nm_matmul alone at VGG-16's fc0 and a ResNet-50
             Conv_0 against masked-dense, timed.
+12. pretrained  model_params.pretrained_path (runs after sparse): a seeded
+            timm-layout DeiT-Small/16-224 state_dict at the published
+            widths written as {"model": sd}, then two warm-started runs
+            through run_experiment_torch's main: imagenet_imp with
+            mp_deit_small and flash at batch 256 (two levels of 4 steps),
+            and cifar10_imp with deit_small_patch16_224, flash and
+            ScheduleFreeSGD at batch 512 (the 14 x 14 grid resized to 2 x 2,
+            the 1000-class head kept at its init); every converted
+            parameter, as built and in model_init, against the phase's own
+            map of the checkpoint; the level-0 logits against a plain-torch
+            timm forward; level 1's masks against global magnitude's at 0.8;
+            finite losses; K1/K2/K3 12 times per forward / backward; each
+            schedule-free evaluation (the averaged weights read, y unchanged,
+            a second pass over the averaged weights recomputed here giving
+            the same accuracy); K1 at the CIFAR shape (5 valid keys of 128)
+            against its plain version, timed; peak memory and the
+            warm-started step's time.
 
-Prints the card (nvidia-smi name and power limit), a ``kernels`` JSON line,
+Prints the card (nvidia-smi name and power limit), each phase's seconds, a
+``kernels`` JSON line,
 and as the last line ``{"ok": true, "device": {...}}``. Needs one CUDA card;
 without one it exits non-zero.
 """
@@ -1030,7 +1050,8 @@ def _grads(model, masks, images, labels, forward=None) -> dict:
 
     model.train()
     params = dict(model.named_parameters())
-    loss = (forward or train_forward)(model, masks, images, labels)["loss"]
+    # noise None: the train step's call, so a compiled forward reuses its graph.
+    loss = (forward or train_forward)(model, masks, images, labels, None)["loss"]
     # Copies: a compiled step's gradients live in its CUDA-graph memory.
     return {n: g.clone() for n, g in zip(params, torch.autograd.grad(loss, list(params.values())))}
 
@@ -1301,16 +1322,18 @@ def phase_train() -> dict:
 # ---------------------------------------------------------------- phase 5
 # The ResNet path: conf/cifar10_imp.yaml as shipped (ResNet-18 with the
 # CIFAR stem, 11.17M parameters, bf16, batch 512, SGD lr 0.2, triangular
-# schedule) at CIFAR-10's own 50,000 / 10,000 images. Cut: synthetic data,
-# one epoch per level (150 shipped), two levels (32 reach 0.999).
+# schedule). Cut: synthetic data, 10,240 / 2,048 images (a fifth of
+# CIFAR-10's 50,000 / 10,000: 20 steps and 4 eval batches a level, cut from
+# 97 and 20 to give the later phases room), one epoch per level (150
+# shipped), two levels (32 reach 0.999).
 RESNET_OVERRIDES = [
     "dataset_params.dataloader_type=synthetic",
-    "dataset_params.synthetic_num_train=50000",
-    "dataset_params.synthetic_num_test=10000",
+    "dataset_params.synthetic_num_train=10240",
+    "dataset_params.synthetic_num_test=2048",
     "experiment_params.epochs_per_level=1",
 ]
 RESNET_BATCH = 512
-RESNET_STEPS = 50000 // RESNET_BATCH     # 97 steps per level
+RESNET_STEPS = 10240 // RESNET_BATCH     # 20 steps per level
 # The card against the CPU, one fp32 train step of the full model at batch
 # 32 with TF32 off: both compute the same fp32 convolutions in other
 # summation orders (~1e-6 relative per value), which the train-mode
@@ -1364,7 +1387,8 @@ class _Recorder:
     parameters and statistics, that every evaluation ran in eval mode and
     left the running statistics as they were, dynamo's graph count at the
     end of each level, and the wall time of the first train step and of
-    each evaluation (a compiled run compiles in its first of each)."""
+    each evaluation (a compiled run compiles in its first of each); keeps
+    the harness, whose compiled forwards a later step can reuse."""
 
     def __init__(self):
         self.starts = {}
@@ -1372,6 +1396,7 @@ class _Recorder:
         self.graphs = {}
         self.first_step_s = None
         self.eval_s = []
+        self.harness = None
 
     def harness_cls(self):
         import torch
@@ -1382,6 +1407,10 @@ class _Recorder:
         recorder = self
 
         class Harness(PruningHarness):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                recorder.harness = self
+
             def train_one_level(self, epochs_per_level, level):
                 recorder.starts[level] = {
                     k: v.detach().cpu().clone()
@@ -2183,18 +2212,19 @@ def _kinds_line(kinds: dict) -> str:
 
 
 def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
+    from unittest import mock
+
     import torch
     from torch._dynamo.utils import counters
     from torch.profiler import ProfilerActivity, profile
 
     import run_experiment_torch
+    from turboprune_tpu_torch import driver
     from turboprune_tpu_torch.config.compose import compose
     from turboprune_tpu_torch.data.augment import CIFAR10_MEAN, CIFAR10_STD, normalize_uint8
     from turboprune_tpu_torch.data.synthetic import synthetic_arrays
-    from turboprune_tpu_torch.harness import PruningHarness
     from turboprune_tpu_torch.models import create_model
     from turboprune_tpu_torch.ops import flash, masking
-    from turboprune_tpu_torch.train import mark_buffers_static
     from turboprune_tpu_torch.utils import ExperimentCheckpoints
 
     cuda = torch.device("cuda")
@@ -2234,14 +2264,11 @@ def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
         log(f"compile resnet compile seconds by stage (torch._dynamo compile_times, summed, "
             f"largest first): {_compile_stages()}")
 
-        # ---- the compiled bf16 step at batch 512: time and device work
-        harness = PruningHarness(
-            compose("cifar10_imp", RESNET_OVERRIDES[:1] + [
-                "dataset_params.synthetic_num_train=512",
-                "dataset_params.synthetic_num_test=512",
-                "model_params.use_compile=true",
-                f"experiment_params.base_dir={base}/timing"]),
-            ("", str(Path(base) / "timing")), device="cuda")
+        # ---- the compiled bf16 step at batch 512: time and device work, on
+        # the IMP run's harness, whose compiled forwards serve every shape
+        # used here (a new harness or model would compile them again)
+        harness = recorder.harness
+        graphs = counters["stats"]["unique_graphs"]
         harness.setup_level(1)
         batch = next(iter(harness.loaders.train_loader))
 
@@ -2266,7 +2293,8 @@ def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
             log("compile resnet train step top device kernels (ms per step): "
                 + "; ".join(f"{name} {ms:.3f}" for name, ms in kernels[:5]))
 
-        # ---- one step compiled against eager: bf16 at batch 512 ...
+        # ---- one step compiled against eager: bf16 at batch 512 (the
+        # compiled one on the harness's own model) ...
         weights = {k: v.detach().clone() for k, v in harness.state.model.state_dict().items()}
         masks = {p: m.to(cuda) for p, m in level1["masks"].items()}
 
@@ -2277,11 +2305,14 @@ def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
 
         ref = _grads(resnet(torch.float32), masks, *batch)
         eager16 = _grads(resnet(torch.bfloat16), masks, *batch)
-        model = resnet(torch.bfloat16)
-        mark_buffers_static(model)
-        compiled16 = _grads(model, masks, *batch, forward=harness._train_forward)
+        compiled16 = _grads(harness.state.model, masks, *batch, forward=harness._train_forward)
         _check_compiled_grads(f"compile resnet batch {RESNET_BATCH}", compiled16, eager16, ref)
-        del ref, eager16, compiled16, model, harness
+        new_graphs = counters["stats"]["unique_graphs"] - graphs
+        log(f"compile resnet: dynamo graphs added by the timing and the gradient check on the "
+            f"run's harness {new_graphs} (expected 0: no recompile)")
+        if new_graphs:
+            raise AssertionError("compile resnet: the timed step or the gradient recompiled")
+        del ref, eager16, compiled16, harness, recorder
         # ... and fp32 at batch 32 beside the CPU and float64, TF32 off
         _card_vs_cpu(resnet_eager["masks"], compiled=True)
 
@@ -2289,10 +2320,12 @@ def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
         # the profiler counts the kernels' launches (CUDA-graph replays run no
         # Python, so the wrappers' counters see eager, warm-up and recording
         # calls only)
+        recorder = _Recorder()
         for c in launch_counters:
             c.launches = 0
         t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with (profile(activities=[ProfilerActivity.CUDA]) as prof,
+              mock.patch.object(driver, "PruningHarness", recorder.harness_cls())):
             rc = run_experiment_torch.main(
                 ["--device", "cuda", "--config-name=imagenet_imp", *COMPILE_TRAIN_OVERRIDES,
                  f"experiment_params.base_dir={base}/deit"])
@@ -2332,12 +2365,10 @@ def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
         if d0 != 1.0 or not exact or not all(map(math.isfinite, losses)):
             raise AssertionError("compiled DeiT: densities or losses are wrong")
 
-        # ---- the compiled DeiT step: time, device work, launches per replay
-        harness = PruningHarness(
-            compose("imagenet_imp", COMPILE_TRAIN_OVERRIDES + [
-                "dataset_params.synthetic_num_train=256",
-                "dataset_params.synthetic_num_test=256"]),
-            ("", str(Path(base) / "deit_timing")), device="cuda")
+        # ---- the compiled DeiT step: time, device work, launches per replay,
+        # on the run's harness (its compiled forwards)
+        harness = recorder.harness
+        graphs = counters["stats"]["unique_graphs"]
         harness.setup_level(1)
         batch = next(iter(harness.loaders.train_loader))
 
@@ -2366,7 +2397,8 @@ def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
                                  f"{DEPTH} each")
 
         # ---- one DeiT step compiled against eager, level 1's weights and
-        # masks, the train phase's batch
+        # masks, the train phase's batch; the compiled one on the harness's
+        # own model, level 1's weights copied into it in place
         cfg = compose("imagenet_imp", COMPILE_TRAIN_OVERRIDES)
         x, y = synthetic_arrays(256, 224, 1000, seed=7)
         images = normalize_uint8(torch.from_numpy(x).to(cuda), CIFAR10_MEAN, CIFAR10_STD)
@@ -2381,10 +2413,16 @@ def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
 
         ref = _grads(deit("dense", torch.float32), masks, images, labels)
         eager16 = _grads(deit("flash", torch.bfloat16), masks, images, labels)
-        compiled16 = _grads(deit("flash", torch.bfloat16), masks, images, labels,
+        harness.state.model.load_state_dict(dlevel1["params"])
+        compiled16 = _grads(harness.state.model, masks, images, labels,
                             forward=harness._train_forward)
         _check_compiled_grads("compile deit batch 256", compiled16, eager16, ref)
-        del ref, eager16, compiled16, harness
+        new_graphs = counters["stats"]["unique_graphs"] - graphs
+        log(f"compile deit: dynamo graphs added by the timing and the gradient check on the "
+            f"run's harness {new_graphs} (expected 0: no recompile)")
+        if new_graphs:
+            raise AssertionError("compile deit: the timed step or the gradient recompiled")
+        del ref, eager16, compiled16, harness, recorder
     from torch._inductor.async_compile import shutdown_compile_workers
 
     shutdown_compile_workers()
@@ -2856,7 +2894,7 @@ def phase_imagenet(card: str) -> dict:
 FOLDER_RATE_WORKERS = (1, 8, 16)
 FOLDER_RATE_BATCH = 64              # each batch is one worker's: 3 per worker a reading
 FOLDER_RESUME_BATCH = 64            # the resume trio's batch (its checks are exact)
-FOLDER_MODEL_STEPS = 4
+FOLDER_MODEL_STEPS = 2                # a level's steps for VGG and DenseNet
 FOLDER_MODEL_BATCHES = (256, 128, 64)
 FOLDER_MODEL_PROBE = (32, 64)
 FOLDER_MODELS = ("mp_vgg16", "mp_densenet121")
@@ -3623,6 +3661,438 @@ def _sparse_deit_grads(rec, plan) -> None:
         raise AssertionError("gathered DeiT gradients disagree with masked-dense")
 
 
+# ---------------------------------------------------------------- phase 12
+# Warm-starting a DeiT from a timm checkpoint (model_params.pretrained_path)
+# and schedule-free SGD. The card's machine has no checkpoint and nothing may
+# be fetched, so the phase writes a seeded timm-layout DeiT-Small/16-224
+# state_dict at the published widths (embed 384, depth 12, 6 heads, MLP
+# 1536, 1000 classes: 22,050,664 values, ~88 MB) as {"model": sd}. Two
+# configurations, each cut only in its data (synthetic) and to two levels of
+# one epoch of 4 steps:
+#   (a) the train phase's imagenet_imp + mp_deit_small + flash at batch 256,
+#       warm-started: K1/K2/K3 at [1536, 256, 64];
+#   (b) the README's cifar10_imp + deit_small_patch16_224 + flash at the
+#       config's batch 512, warm-started (the 14 x 14 grid resized to 2 x 2,
+#       the 1000-class head kept at its init) with ScheduleFreeSGD: K1 at
+#       [3072, 128, 64] with 5 valid keys, a length no other phase runs.
+PRETRAINED_A = TRAIN_OVERRIDES
+PRETRAINED_B = [
+    "model_params.model_name=deit_small_patch16_224",
+    "model_params.attention_impl=flash",
+    "optimizer_params.optimizer_name=ScheduleFreeSGD",
+    "dataset_params.dataloader_type=synthetic",
+    "dataset_params.synthetic_num_train=2048",
+    "dataset_params.synthetic_num_test=512",
+    "experiment_params.epochs_per_level=1",
+    "pruning_params.target_sparsity=0.2",
+]
+PRETRAINED_B_BATCH, PRETRAINED_B_STEPS, PRETRAINED_B_EVALS = 512, 2 * 4, 2 * 1
+PRETRAINED_B_BH, PRETRAINED_B_SEQ, PRETRAINED_B_VALID = 512 * HEADS, 128, 5
+# Level-0 logits of (a) against a functional timm forward in plain torch
+# (fp32) on the checkpoint: the port's model in fp32 within 1e-3 (the two
+# sum in other orders, and K1 keeps fp32 scores: ~1e-5 expected); the
+# harness's bf16 model within twice the bf16 dense-attention model's distance
+# plus 1e-2 (bf16 rounds activations in both, at other places).
+PRETRAINED_FP32_ATOL = 1e-3
+PRETRAINED_BF16_FACTOR, PRETRAINED_BF16_FLOOR = 2.0, 1e-2
+PRETRAINED_LOGIT_IMAGES = 32
+# The resized position embedding against the phase's own float64 resize
+# (Keys' cubic, a = -0.5, the kernel widened by the scale when shrinking, as
+# jax.image.resize does): within 1e-6 of its largest value.
+PRETRAINED_POS_TOL = 1e-6
+
+
+def _timm_deit_small(seed: int = 0) -> dict:
+    """A timm DeiT-Small/16-224 state_dict of seeded normals (weights over
+    sqrt(fan_in), LayerNorm weights around 1, biases and tokens 0.1 x), on
+    the CPU."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    d, hidden, classes = 384, 1536, 1000
+    shapes = {"cls_token": (1, 1, d), "pos_embed": (1, 197, d),
+              "patch_embed.proj.weight": (d, 3, 16, 16), "patch_embed.proj.bias": (d,)}
+    for i in range(DEPTH):
+        t = f"blocks.{i}"
+        shapes.update({
+            f"{t}.norm1.weight": (d,), f"{t}.norm1.bias": (d,),
+            f"{t}.attn.qkv.weight": (3 * d, d), f"{t}.attn.qkv.bias": (3 * d,),
+            f"{t}.attn.proj.weight": (d, d), f"{t}.attn.proj.bias": (d,),
+            f"{t}.norm2.weight": (d,), f"{t}.norm2.bias": (d,),
+            f"{t}.mlp.fc1.weight": (hidden, d), f"{t}.mlp.fc1.bias": (hidden,),
+            f"{t}.mlp.fc2.weight": (d, hidden), f"{t}.mlp.fc2.bias": (d,)})
+    shapes.update({"norm.weight": (d,), "norm.bias": (d,), "head.weight": (classes, d),
+                   "head.bias": (classes,)})
+    sd = {}
+    for name, shape in shapes.items():
+        x = torch.randn(shape, generator=g)
+        if name.endswith(("norm1.weight", "norm2.weight")) or name == "norm.weight":
+            x = 1.0 + 0.1 * x
+        elif name.endswith("weight"):
+            x = x / math.sqrt(math.prod(shape[1:]))
+        else:
+            x = 0.1 * x
+        sd[name] = x
+    return sd
+
+
+def _cubic_weights(n_in: int, n_out: int):
+    """float64 (n_in, n_out) weights of jax.image.resize's "bicubic" along
+    one axis, written out here as the phase's own reference."""
+    out = np.zeros((n_in, n_out))
+    inv = n_in / n_out
+    width = max(inv, 1.0)
+    for j in range(n_out):
+        centre = (j + 0.5) * inv - 0.5
+        for i in range(n_in):
+            x = abs(centre - i) / width
+            out[i, j] = (1.5 * x ** 3 - 2.5 * x ** 2 + 1 if x < 1 else
+                         -0.5 * x ** 3 + 2.5 * x ** 2 - 4 * x + 2 if x < 2 else 0.0)
+        out[:, j] /= out[:, j].sum()
+    return out
+
+
+def _timm_to_port(sd: dict, grid: int) -> dict:
+    """The phase's own statement of the map from timm's names and layout to
+    the port's parameters (models/pretrained.py is what the harness runs):
+    names only, qkv split into its three row blocks, the position grid
+    resized to ``grid`` x ``grid`` in float64 where it differs."""
+    import torch
+
+    out = {"cls_token": sd["cls_token"], "patch_embed.weight": sd["patch_embed.proj.weight"],
+           "patch_embed.bias": sd["patch_embed.proj.bias"], "norm.weight": sd["norm.weight"],
+           "norm.bias": sd["norm.bias"], "head.weight": sd["head.weight"],
+           "head.bias": sd["head.bias"]}
+    pe = sd["pos_embed"]
+    if grid != 14:
+        w = torch.from_numpy(_cubic_weights(14, grid))
+        g = torch.einsum("hwc,hi,wj->ijc", pe[0, 1:].double().reshape(14, 14, -1), w, w)
+        pe = torch.cat([pe[:, :1].double(), g.reshape(1, grid * grid, -1)], dim=1)
+    out["pos_embed"] = pe
+    for i in range(DEPTH):
+        t, f = f"blocks.{i}", f"block{i}"
+        for name, w, b in zip(("query", "key", "value"),
+                              sd[f"{t}.attn.qkv.weight"].chunk(3, 0),
+                              sd[f"{t}.attn.qkv.bias"].chunk(3, 0)):
+            out[f"{f}.attn.{name}.weight"], out[f"{f}.attn.{name}.bias"] = w, b
+        out[f"{f}.attn.out.weight"] = sd[f"{t}.attn.proj.weight"]
+        out[f"{f}.attn.out.bias"] = sd[f"{t}.attn.proj.bias"]
+        for part in ("norm1", "norm2", "mlp.fc1", "mlp.fc2"):
+            for leaf in ("weight", "bias"):
+                out[f"{f}.{part}.{leaf}"] = sd[f"{t}.{part}.{leaf}"]
+    return out
+
+
+def _timm_forward(sd: dict, images) -> "torch.Tensor":
+    """timm's DeiT eval forward, functional on the state_dict, in fp32
+    (pre-LN blocks, exact GELU, LayerNorm eps 1e-6, scale head_dim^-0.5);
+    ``images`` NHWC."""
+    import torch
+    import torch.nn.functional as F
+
+    n, d = images.shape[0], sd["cls_token"].shape[-1]
+    hd = d // HEADS
+    x = F.conv2d(images.permute(0, 3, 1, 2), sd["patch_embed.proj.weight"],
+                 sd["patch_embed.proj.bias"], stride=16).flatten(2).transpose(1, 2)
+    x = torch.cat([sd["cls_token"].expand(n, -1, -1), x], dim=1) + sd["pos_embed"]
+    for i in range(DEPTH):
+        b = f"blocks.{i}"
+        y = F.layer_norm(x, (d,), sd[f"{b}.norm1.weight"], sd[f"{b}.norm1.bias"], 1e-6)
+        q, k, v = (t.reshape(n, -1, HEADS, hd).transpose(1, 2) for t in
+                   F.linear(y, sd[f"{b}.attn.qkv.weight"], sd[f"{b}.attn.qkv.bias"]).chunk(3, -1))
+        a = torch.softmax(q @ k.transpose(-2, -1) * hd ** -0.5, dim=-1)
+        y = (a @ v).transpose(1, 2).reshape(n, -1, d)
+        x = x + F.linear(y, sd[f"{b}.attn.proj.weight"], sd[f"{b}.attn.proj.bias"])
+        y = F.layer_norm(x, (d,), sd[f"{b}.norm2.weight"], sd[f"{b}.norm2.bias"], 1e-6)
+        y = F.gelu(F.linear(y, sd[f"{b}.mlp.fc1.weight"], sd[f"{b}.mlp.fc1.bias"]))
+        x = x + F.linear(y, sd[f"{b}.mlp.fc2.weight"], sd[f"{b}.mlp.fc2.bias"])
+    x = F.layer_norm(x, (d,), sd["norm.weight"], sd["norm.bias"], 1e-6)
+    return F.linear(x[:, 0], sd["head.weight"], sd["head.bias"])
+
+
+def _short_row_tol(q, k, v, n_valid: int, scale: float, ro):
+    """The bf16 limit on |o - plain| for rows of few valid keys: 2 ulps of
+    max(|o|, BF16_MIN_MAG) (_kernel_tol) plus, per element, the most that
+    rounding flips of p can move o. Both sides round the unnormalised p =
+    exp(s - m) (at most 1) to bf16 from fp32 values that differ in their
+    last bits, so each key's p may land one bf16 ulp apart: o moves by at
+    most sum_k ulp(p_k) |v_k| / l. Over 197 keys each p / l is small and
+    the first term covers it; over 5 keys one p / l may be near 1."""
+    import torch
+
+    s = (q.float() * scale) @ k[:, :n_valid].float().transpose(1, 2)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    _, e = torch.frexp(p)
+    ulp = torch.ldexp(torch.ones_like(p), e - 8)
+    flips = (ulp / l) @ v[:, :n_valid].float().abs()
+    return _kernel_tol("bfloat16", ro) + flips
+
+
+def _check_converted(tag: str, got: dict, want: dict, kept_head: bool) -> None:
+    """Every converted parameter equal to the phase's own map, bit for bit
+    (a resized pos_embed within PRETRAINED_POS_TOL of its float64 resize);
+    with ``kept_head`` the head is the init's, not the checkpoint's."""
+    import torch
+
+    names = [k for k in want if not (kept_head and k.startswith("head."))]
+    bad = []
+    for name in names:
+        g, w = got[name].detach().cpu(), want[name]
+        if w.dtype == torch.float64:
+            err = (g.double() - w).abs().max().item()
+            ok = g.dtype == torch.float32 and err <= PRETRAINED_POS_TOL * w.abs().max().item()
+            log(f"{tag} pos_embed resized to {g.shape[1]} tokens: max |port - float64 resize| "
+                f"{err:.3e} (limit {PRETRAINED_POS_TOL:g} of max {w.abs().max().item():.4f})")
+        else:
+            ok = g.dtype == torch.float32 and torch.equal(g, w)
+        if not ok:
+            bad.append(name)
+    head_ok = (not kept_head or got["head.weight"].shape[0] != want["head.weight"].shape[0])
+    log(f"{tag} converted parameters equal to the checkpoint's mapped tensors: "
+        f"{len(names) - len(bad)} of {len(names)}" + (" (head kept at its init)" if kept_head
+                                                      else "") + (f"; differ: {bad[:4]}" if bad else ""))
+    if bad or not head_ok or set(got) - set(want):
+        raise AssertionError(f"{tag}: converted parameters differ from the checkpoint")
+
+
+def phase_pretrained(train_out: dict, card: str) -> dict:
+    import torch
+    from unittest import mock
+
+    import run_experiment_torch
+    from turboprune_tpu_torch import driver
+    from turboprune_tpu_torch.harness import PruningHarness
+    from turboprune_tpu_torch.models import create_model
+    from turboprune_tpu_torch.ops import flash
+    from turboprune_tpu_torch.ops.flash import flash_attention_plain, flash_fwd_cuda
+    from turboprune_tpu_torch.utils import MODEL_INIT, ExperimentCheckpoints
+
+    t_phase = time.perf_counter()
+    counters = (flash.flash_fwd_cuda, flash.flash_bwd_dq_cuda, flash.flash_bwd_dkv_cuda)
+    total = dict.fromkeys((c.__name__ for c in counters), 0)
+    sd = _timm_deit_small()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pretrained_") as base:
+        path = Path(base) / "deit_small_patch16_224.pth"
+        torch.save({"model": sd}, path)
+        log(f"pretrained checkpoint: seeded timm DeiT-Small/16-224 state_dict, "
+            f"{sum(v.numel() for v in sd.values()):,} values in {len(sd)} tensors, "
+            f"{path.stat().st_size / 1e6:.1f} MB")
+        images = torch.randn(PRETRAINED_LOGIT_IMAGES, 224, 224, 3, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(11))
+        seen: dict = {}
+
+        class Harness(PruningHarness):
+            """Keeps itself and its parameters as built (the warm start,
+            before any training)."""
+
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                seen["harness"] = self
+                seen["built"] = {k: v.detach().cpu().clone()
+                                 for k, v in self.model.named_parameters()}
+
+        def run(name, overrides, cls):
+            for c in counters:
+                c.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with mock.patch.object(driver, "PruningHarness", cls):
+                rc = run_experiment_torch.main(
+                    ["--device", "cuda", f"--config-name={name}", *overrides,
+                     f"model_params.pretrained_path={path}",
+                     f"experiment_params.base_dir={base}/{name}"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {c.__name__: c.launches for c in counters}
+            (expt,) = [d for d in (Path(base) / name).iterdir() if d.is_dir()]
+            return rc, expt, wall, launches, torch.cuda.max_memory_allocated() / 1e9
+
+        def level_checks(tag, expt, want, kept_head, launches, expect):
+            ckpts = ExperimentCheckpoints(expt)
+            level0, level1 = ckpts.load_level(0), ckpts.load_level(1)
+            init = ckpts.load_model(MODEL_INIT)["params"]
+            init_ok = all(torch.equal(init[k], seen["built"][k]) for k in init)
+            exact, ladder = _mag_ladder(level0, level1)
+            rows = [r for lvl in (0, 1) for r in _read_csv(
+                expt / "metrics" / "level_wise_metrics" / f"level_{lvl}_metrics.csv")]
+            losses = [float(r[k]) for r in rows for k in ("train_loss", "test_loss")]
+            log(f"{tag}: model_init equal to the warm-started parameters bit for bit: "
+                f"{init_ok}; level 1 {ladder}; losses {[round(v, 4) for v in losses]}; "
+                f"K1/K2/K3 launches {launches} (expected {expect}: 12 per forward / backward)")
+            if not (init_ok and exact and len(rows) == 2 and launches == expect
+                    and all(map(math.isfinite, losses))):
+                raise AssertionError(f"{tag}: level checks failed")
+            _check_converted(tag, init, want, kept_head)
+            return rows
+
+        # ---- (a) imagenet_imp + mp_deit_small + flash, warm-started: the
+        # main path, counts at 0 just before it (inside run)
+        rc, expt, wall, launches, peak = run("imagenet_imp", PRETRAINED_A, Harness)
+        # ---- end of the main path
+        log(f"pretrained deit_small imagenet_imp: run_experiment_torch main "
+            f"--config-name=imagenet_imp model_params=mp_deit_small "
+            f"model_params.attention_impl=flash model_params.pretrained_path=<checkpoint> -> "
+            f"{rc} in {wall:.1f} s (batch 256, 2 levels of 4 steps); peak memory {peak:.2f} GB")
+        if rc:
+            raise AssertionError(f"pretrained (a): run_experiment_torch main returned {rc}")
+        want = _timm_to_port(sd, 14)
+        _check_converted("pretrained (a) as built", seen["built"], want, kept_head=False)
+        expect = {"flash_fwd_cuda": DEPTH * (TRAIN_STEPS + EVAL_BATCHES),
+                  "flash_bwd_dq_cuda": DEPTH * TRAIN_STEPS,
+                  "flash_bwd_dkv_cuda": DEPTH * TRAIN_STEPS}
+        level_checks("pretrained (a)", expt, want, False, launches, expect)
+        total = {k: total[k] + launches[k] for k in total}
+        # Level-0 logits (the built weights, the harness's model: bf16 with
+        # flash; and in fp32, and with dense attention as the yardstick)
+        # against the timm forward on the checkpoint, outside the counted run.
+        cuda_sd = {k: v.cuda() for k, v in sd.items()}
+        dist = {}
+        with torch.no_grad():
+            oracle = _timm_forward(cuda_sd, images)
+            for impl, dtype in (("flash", torch.bfloat16), ("flash", torch.float32),
+                                ("dense", torch.bfloat16)):
+                model = create_model("deit_small_patch16_224", 1000, "ImageNet",
+                                     compute_dtype=dtype, attention_impl=impl, image_size=224)
+                model.load_state_dict(seen["built"])
+                model = model.cuda().eval()
+                dist[f"{impl} {str(dtype)[6:]}"] = (model(images).float() - oracle).abs().max().item()
+                del model
+        bf16_limit = PRETRAINED_BF16_FACTOR * dist["dense bfloat16"] + PRETRAINED_BF16_FLOOR
+        log(f"pretrained (a) level-0 logits against timm's forward on the checkpoint (fp32, "
+            f"plain torch, {PRETRAINED_LOGIT_IMAGES} images, max |logit| "
+            f"{oracle.abs().max().item():.3f}): max |diff| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in dist.items())
+            + f" (limits: fp32 flash {PRETRAINED_FP32_ATOL:g}, bf16 flash {bf16_limit:.3e} = "
+            f"{PRETRAINED_BF16_FACTOR:g} x dense bf16 + {PRETRAINED_BF16_FLOOR:g})")
+        if dist["flash float32"] > PRETRAINED_FP32_ATOL or dist["flash bfloat16"] > bf16_limit:
+            raise AssertionError("pretrained (a): level-0 logits disagree with timm's forward")
+        del cuda_sd, oracle
+        # The warm-started step, timed as the train phase times its own.
+        harness = seen.pop("harness")
+        harness.setup_level(1)
+        batch = next(iter(harness.loaders.train_loader))
+        step_ms = _call_ms(lambda: harness._train_step(harness.state, batch), reps=5, warmup=2)
+        log(f"pretrained (a) train step (DeiT-Small/16 @ 224, batch 256, bf16, flash, "
+            f"warm-started): {step_ms:.3f} ms (CUDA events, median of 5; the train phase's "
+            f"step from a random init {train_out['step_ms']:.3f} ms) on {card}")
+        del harness, batch
+        torch.cuda.empty_cache()
+
+        # ---- (b) cifar10_imp + deit_small_patch16_224 + flash, warm-started,
+        # ScheduleFreeSGD
+        evals: list = []
+        check_launches: list = []
+
+        class SFHarness(Harness):
+            """Checks every evaluation: it reads the averaged weights, which
+            differ from y, y is as it was after it, and the level-0
+            evaluation's accuracy equals a second pass over the averaged
+            weights recomputed here from the optimizer's z and b1."""
+
+            def evaluate(self):
+                opt = self.state.optimizer
+                params = list(self.state.model.parameters())
+                y = [p.detach().clone() for p in params]
+                group = opt.param_groups[0]
+                b1 = group["momentum"]
+                averaged = [(p.detach() - (1.0 - b1) * opt.state[p]["z"]) / b1 for p in params]
+                read = []
+                inner = self._evaluate_on
+
+                def recording(model, masks, forward):
+                    read.append([p.detach().clone() for p in model.parameters()])
+                    return inner(model, masks, forward)
+
+                self._evaluate_on = recording
+                try:
+                    out = super().evaluate()
+                finally:
+                    del self._evaluate_on
+                check = {
+                    "read the averaged weights": all(
+                        torch.equal(a, b) for a, b in zip(read[0], averaged)),
+                    "which differ from y": any(
+                        not torch.equal(a, b) for a, b in zip(averaged, y)),
+                    "y unchanged": all(torch.equal(p, b) for p, b in zip(params, y)),
+                }
+                if not evals:
+                    # A check, not the main path: its K1 launches are taken
+                    # out of the run's count.
+                    before = flash.flash_fwd_cuda.launches
+                    with torch.no_grad():
+                        for p, a in zip(params, averaged):
+                            p.copy_(a)
+                        again = inner(self.state.model, self.state.masks, self._eval_forward)
+                        for p, b in zip(params, y):
+                            p.copy_(b)
+                    check_launches.append(flash.flash_fwd_cuda.launches - before)
+                    check["a second pass over them gives the same accuracy"] = (
+                        again["test_acc"] == out["test_acc"])
+                    check["and loss"] = again["test_loss"] == out["test_loss"]
+                evals.append((group["step_count"], group["base_count"], out["test_acc"], check))
+                return out
+
+        rc, expt, wall, launches, peak = run("cifar10_imp", PRETRAINED_B, SFHarness)
+        launches["flash_fwd_cuda"] -= sum(check_launches)
+        # ---- end of the main path
+        log(f"pretrained deit_small cifar10_imp: run_experiment_torch main "
+            f"--config-name=cifar10_imp " + " ".join(PRETRAINED_B[:3])
+            + f" model_params.pretrained_path=<checkpoint> -> {rc} in {wall:.1f} s (batch "
+            f"{PRETRAINED_B_BATCH}, 2 levels of 4 steps, 5 tokens at 32 px); peak memory "
+            f"{peak:.2f} GB; K1 launches of the phase's second evaluation pass, not counted: "
+            f"{sum(check_launches)}")
+        if rc:
+            raise AssertionError(f"pretrained (b): run_experiment_torch main returned {rc}")
+        want = _timm_to_port(sd, 2)
+        _check_converted("pretrained (b) as built", seen["built"], want, kept_head=True)
+        expect = {"flash_fwd_cuda": DEPTH * (PRETRAINED_B_STEPS + PRETRAINED_B_EVALS),
+                  "flash_bwd_dq_cuda": DEPTH * PRETRAINED_B_STEPS,
+                  "flash_bwd_dkv_cuda": DEPTH * PRETRAINED_B_STEPS}
+        level_checks("pretrained (b)", expt, want, True, launches, expect)
+        total = {k: total[k] + launches[k] for k in total}
+        for step_count, base_count, acc, check in evals:
+            log(f"pretrained (b) schedule-free evaluation after {base_count} steps (averaging "
+                f"count {step_count}): test_acc {acc:.4f}; " + "; ".join(
+                    f"{k} {v}" for k, v in check.items()))
+        if len(evals) != 2 or not all(all(c.values()) for *_, c in evals) or not all(
+                s == b + 1 for s, b, *_ in evals):
+            raise AssertionError("pretrained (b): schedule-free evaluation checks failed")
+        seen.clear()
+
+        # ---- K1 at (b)'s shape: S = 5 padded to one 128-key block, fp32
+        # (FP32_TOL) and bf16 (_short_row_tol), then timed in bf16
+        with torch.no_grad():
+            shares, lse_errs = {}, {}
+            for i, dt in enumerate(("float32", "bfloat16")):
+                q, k, v, valid = _flash_inputs(PRETRAINED_B_BH, PRETRAINED_B_SEQ,
+                                               PRETRAINED_B_VALID, getattr(torch, dt), seed=12 + i)
+                o, lse = flash_fwd_cuda(q, k, v, valid, 1.0 / 8.0)
+                ro, rlse = flash_attention_plain(q, k, v, valid, 1.0 / 8.0)
+                tol = (_kernel_tol(dt, ro) if dt == "float32"
+                       else _short_row_tol(q, k, v, PRETRAINED_B_VALID, 1.0 / 8.0, ro))
+                shares[dt] = ((o.float() - ro.float()).abs() / tol).max().item()
+                lse_errs[dt] = (lse - rlse).abs().max().item()
+            share, err_l = max(shares.values()), max(lse_errs.values())
+            ms = _stream_ms(lambda: flash_fwd_cuda(q, k, v, valid, 1.0 / 8.0), reps=50)
+            plain_ms = _stream_ms(lambda: flash_attention_plain(q, k, v, valid, 1.0 / 8.0),
+                                  reps=10)
+            del q, k, v, o, ro
+        bound, by = flash_bound_ms(PRETRAINED_B_BH, PRETRAINED_B_SEQ, PRETRAINED_B_VALID,
+                                   "bfloat16")
+        log(f"time flash_fwd bf16 [{PRETRAINED_B_BH},{PRETRAINED_B_SEQ},{HEAD_DIM}] "
+            f"valid={PRETRAINED_B_VALID} (the README's CIFAR warm start): kernel {ms:.4f} ms per "
+            f"launch (50 back to back, median of 5 rounds), plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms by {by} ({bound / ms * 100:.1f}% of bound); against plain: worst "
+            f"element at {shares['float32']:.3f} of its limit in fp32 (1e-5), "
+            f"{shares['bfloat16']:.3f} in bf16 (2 ulps of max(|o|, {BF16_MIN_MAG:g}) plus one "
+            f"bf16 ulp of each key's p times |v| / l), max|lse-plain| {err_l:.3e} on {card}")
+        if share > 1.0 or err_l > LSE_TOL:
+            raise AssertionError("flash_fwd disagrees with its plain version at S = 5")
+    log(f"pretrained phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": total}
+
+
 def main() -> int:
     import torch
 
@@ -3635,29 +4105,42 @@ def main() -> int:
     card = card_line()
     log(card)
     t0 = time.perf_counter()
-    phase_build()
-    timing = phase_kernels()
-    bwd_timing = phase_backward_kernels()
-    slice_out = phase_slice()
-    train_out = phase_train()
-    resnet_out = phase_resnet()
-    phase_resume()
-    cyclic_out = phase_cyclic()
-    imagenet_out = phase_imagenet(card)
-    phase_imagenet_folder(card, imagenet_out)
-    sparse_out = phase_sparse(card)
-    compile_out = phase_compile(resnet_out, train_out)
-    log(f"all phases passed in {time.perf_counter() - t0:.1f} s on {card}")
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        log(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    timed("build", phase_build)
+    timing = timed("kernels", phase_kernels)
+    bwd_timing = timed("backward_kernels", phase_backward_kernels)
+    slice_out = timed("slice", phase_slice)
+    train_out = timed("train", phase_train)
+    resnet_out = timed("resnet", phase_resnet)
+    timed("resume", phase_resume)
+    cyclic_out = timed("cyclic", phase_cyclic)
+    imagenet_out = timed("imagenet", phase_imagenet, card)
+    timed("imagenet_folder", phase_imagenet_folder, card, imagenet_out)
+    sparse_out = timed("sparse", phase_sparse, card)
+    pretrained_out = timed("pretrained", phase_pretrained, train_out, card)
+    compile_out = timed("compile", phase_compile, resnet_out, train_out)
+    log(f"all phases passed in {time.perf_counter() - t0:.1f} s on {card}; seconds by phase "
+        + json.dumps(seconds))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_flash_ms")
     # Launches on the main paths: K1 in every forward, served, trained,
-    # trained in cycles, trained with gathered N:M layers and trained
-    # compiled; K2/K3 in every training backward. The wrappers count the eager paths; the profiler counts the
+    # trained in cycles, trained with gathered N:M layers, warm-started from
+    # a timm checkpoint and trained compiled; K2/K3 in every training
+    # backward. The wrappers count the eager paths; the profiler counts the
     # compiled one, whose CUDA-graph replays run no Python.
     compiled = dict(zip(("flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda"),
                         (compile_out["device_launches"][k] for k in KERNEL_NAMES)))
     trained = {k: train_out["launches"][k] + cyclic_out["launches"][k] + compiled[k]
-               + sparse_out["launches"][k] for k in train_out["launches"]}
+               + sparse_out["launches"][k] + pretrained_out["launches"][k]
+               for k in train_out["launches"]}
     rows = [
         {**K1, "launches": slice_out["launches"] + trained["flash_fwd_cuda"],
          **{k: timing[k] for k in keys}},

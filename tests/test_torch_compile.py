@@ -155,6 +155,67 @@ def test_compiled_train_step_equals_eager_over_3_steps(name):
                                    rtol=RTOL, atol=ATOL)
 
 
+# -------------------------------------------------------- the level loop
+# (Next to the step tests above and the eval test below: run in one
+# process, as a test worker takes a file's tests in order, they reuse
+# dynamo's ResNet-18 graphs at these shapes instead of tracing them again.)
+def test_cifar10_imp_compiled_matches_eager_with_no_new_graph_at_level_1(tmp_path):
+    """``cifar10_imp`` as shipped (ResNet-18, bf16) with
+    ``model_params.use_compile=true``, 2 levels of 2 steps, through the
+    driver: the compiled forwards run, level 1 (new masks, the rewind
+    copied into the params and statistics in place) adds no graph, and the
+    run ends where the eager run ends (the level checkpoints, rtol 1e-5,
+    atol 1e-6)."""
+    graphs = {}
+
+    class Harness(PruningHarness):
+        def train_one_level(self, epochs_per_level, level):
+            compiled = self._train_forward is not train_forward
+            assert (self._eval_forward is not eval_forward) == compiled
+            out = super().train_one_level(epochs_per_level, level)
+            graphs[compiled, level] = counters["stats"]["unique_graphs"]
+            return out
+
+    ends = {}
+    for compiled in (False, True):
+        base = tmp_path / str(compiled)
+        cfg = compose("cifar10_imp", IMP_OVERRIDES + [
+            f"model_params.use_compile={str(compiled).lower()}",
+            f"experiment_params.base_dir={base}"])
+        expt_dir, summaries = run(cfg, device="cpu", harness_cls=Harness)
+        assert [s["achieved_density"] for s in summaries] == [1.0, pytest.approx(0.8, abs=1e-6)]
+        ends[compiled] = ExperimentCheckpoints(expt_dir)
+        # The knob chose the forwards: compiled ones exactly when it is on.
+        assert {c for c, _ in graphs} == {False, compiled}
+    assert graphs[True, 0] > 0
+    assert graphs[True, 1] == graphs[True, 0]
+    for level in (0, 1):
+        want, got = ends[False].load_level(level), ends[True].load_level(level)
+        for role in ("params", "batch_stats", "masks"):
+            assert got[role].keys() == want[role].keys()
+            for key in want[role]:
+                torch.testing.assert_close(got[role][key], want[role][key], rtol=RTOL,
+                                           atol=ATOL, msg=f"level {level} {key}")
+
+
+def test_compiled_eval_sums_equal_eager_without_padded_rows():
+    model, masks = _seeded(_resnet18, seed=2)
+    mark_buffers_static(model)
+    (x, y), = _batches(32, n=1, seed=3)
+    y[6:] = -1  # the loaders pad the last batch with label -1
+    compiled = compile_forward(eval_forward, CPU)
+    before = {k: v.clone() for k, v in model.named_buffers()}
+    padded = eval_step(model, masks, (x, y), compiled)
+    eager = eval_step(model, masks, (x, y))
+    real = eval_step(model, masks, (x[:6], y[:6]))
+    assert float(padded["count"]) == 6.0
+    for k in ("loss_sum", "correct", "count"):
+        torch.testing.assert_close(padded[k], eager[k], rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(padded[k], real[k], rtol=RTOL, atol=ATOL)
+    assert all(torch.equal(v, before[k]) for k, v in model.named_buffers())
+
+
+# ------------------------------------------------- against the JAX package
 def test_compiled_resnet_steps_match_jax_scan_epoch():
     """Three compiled SGD steps of a width-8 ResNet-18 (CIFAR stem, fp32)
     with masks against ``make_scan_epoch`` over the same three batches,
@@ -203,63 +264,6 @@ def test_compiled_resnet_steps_match_jax_scan_epoch():
         tol = (1e-5, 1e-6) if key.endswith((".mean", ".var")) else (1e-4, 1e-6)
         np.testing.assert_allclose(got[key].numpy(), want.numpy(), rtol=tol[0], atol=tol[1],
                                    err_msg=key)
-
-
-def test_compiled_eval_sums_equal_eager_without_padded_rows():
-    model, masks = _seeded(_resnet18, seed=2)
-    mark_buffers_static(model)
-    (x, y), = _batches(32, n=1, seed=3)
-    y[6:] = -1  # the loaders pad the last batch with label -1
-    compiled = compile_forward(eval_forward, CPU)
-    before = {k: v.clone() for k, v in model.named_buffers()}
-    padded = eval_step(model, masks, (x, y), compiled)
-    eager = eval_step(model, masks, (x, y))
-    real = eval_step(model, masks, (x[:6], y[:6]))
-    assert float(padded["count"]) == 6.0
-    for k in ("loss_sum", "correct", "count"):
-        torch.testing.assert_close(padded[k], eager[k], rtol=RTOL, atol=ATOL)
-        torch.testing.assert_close(padded[k], real[k], rtol=RTOL, atol=ATOL)
-    assert all(torch.equal(v, before[k]) for k, v in model.named_buffers())
-
-
-# -------------------------------------------------------- the level loop
-def test_cifar10_imp_compiled_matches_eager_with_no_new_graph_at_level_1(tmp_path):
-    """``cifar10_imp`` as shipped (ResNet-18, bf16) with
-    ``model_params.use_compile=true``, 2 levels of 2 steps, through the
-    driver: the compiled forwards run, level 1 (new masks, the rewind
-    copied into the params and statistics in place) adds no graph, and the
-    run ends where the eager run ends (the level checkpoints, rtol 1e-5,
-    atol 1e-6)."""
-    graphs = {}
-
-    class Harness(PruningHarness):
-        def train_one_level(self, epochs_per_level, level):
-            compiled = self._train_forward is not train_forward
-            assert (self._eval_forward is not eval_forward) == compiled
-            out = super().train_one_level(epochs_per_level, level)
-            graphs[compiled, level] = counters["stats"]["unique_graphs"]
-            return out
-
-    ends = {}
-    for compiled in (False, True):
-        base = tmp_path / str(compiled)
-        cfg = compose("cifar10_imp", IMP_OVERRIDES + [
-            f"model_params.use_compile={str(compiled).lower()}",
-            f"experiment_params.base_dir={base}"])
-        expt_dir, summaries = run(cfg, device="cpu", harness_cls=Harness)
-        assert [s["achieved_density"] for s in summaries] == [1.0, pytest.approx(0.8, abs=1e-6)]
-        ends[compiled] = ExperimentCheckpoints(expt_dir)
-        # The knob chose the forwards: compiled ones exactly when it is on.
-        assert {c for c, _ in graphs} == {False, compiled}
-    assert graphs[True, 0] > 0
-    assert graphs[True, 1] == graphs[True, 0]
-    for level in (0, 1):
-        want, got = ends[False].load_level(level), ends[True].load_level(level)
-        for role in ("params", "batch_stats", "masks"):
-            assert got[role].keys() == want[role].keys()
-            for key in want[role]:
-                torch.testing.assert_close(got[role][key], want[role][key], rtol=RTOL,
-                                           atol=ATOL, msg=f"level {level} {key}")
 
 
 # ---------------------------------------------------------- no fallback

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 import run_experiment_torch
-from torch_port_fixtures import one_torch_thread, write_image_folder  # noqa: F401
+from torch_port_fixtures import one_torch_thread, run_once, write_image_folder  # noqa: F401
 from turboprune_tpu_torch.config import compose
 from turboprune_tpu_torch.data import create_loaders
 from turboprune_tpu_torch.harness import PruningHarness
@@ -60,9 +60,8 @@ def _resume(base: Path, data: Path, name: str) -> None:
         "experiment_params.resume_experiment_stuff.resume_level=1"])
 
 
-@pytest.fixture(scope="module")
-def data(tmp_path_factory):
-    root = tmp_path_factory.mktemp("imagenet_slice") / "imagenet"
+def _write_data(root: Path) -> Path:
+    root = root / "imagenet"
     # 18 training images (2 batches of 8 and a remainder of 2) and 10 for
     # evaluation (two batches, the second padded), 64 x 48 and 48 x 64.
     sizes = ((64, 48), (48, 64))
@@ -72,11 +71,22 @@ def data(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def runs(data):
+def data(tmp_path_factory):
+    return _write_data(tmp_path_factory.mktemp("imagenet_slice"))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
     """Run a (recording each step's batch), its preempted copies, and one
-    copy resumed (recording too)."""
+    copy resumed (recording too), on data of their own; once per session
+    (``run_once``)."""
+    return run_once(tmp_path_factory, "imagenet_slice", _runs)
+
+
+def _runs(root: Path) -> dict:
+    data = _write_data(root)
     base = data.parent / "experiments"
-    out = {"batches": {}}
+    out = {"batches": {}, "data": data}
     save = Ckpts.save_mid_level
     train_batches = PruningHarness.train_batches
 
@@ -152,12 +162,13 @@ def test_preempted_run_resumes_the_stream_to_the_uninterrupted_end(runs, capsys)
     assert resumed == runs["batches"][runs["a"].name][-1:]
 
 
-def test_a_stream_blob_of_another_save_gives_a_fresh_pass(runs, data, capsys):
+def test_a_stream_blob_of_another_save_gives_a_fresh_pass(runs, capsys):
     stream = runs["preempted_stale"] / "checkpoints" / "mid_level_stream_0"
     blob = stream.read_bytes()
     assert int.from_bytes(blob[:8], "big") == 1_000_000  # level 1, epoch 0
     stream.write_bytes((1_000_005).to_bytes(8, "big") + blob[8:])
     capsys.readouterr()
+    data = runs["data"]
     _resume(data.parent / "experiments", data, runs["preempted_stale"].name)
     out = capsys.readouterr().out
     assert "stream-state blob missing or from another save" in out

@@ -39,6 +39,20 @@ from turboprune_tpu_torch.train import masked_forward
 RESNET50 = dict(stage_sizes=[3, 4, 6, 3], num_classes=10, cifar_stem=True, width=16)
 
 
+# The JAX solvers under jax.jit (n, m and iters static): op by op, their
+# vmapped top-k and alternating maximisation compile every primitive at
+# every new shape, ~25 s for the ResNet-50's layers.
+_JIT_INAXIS = jax.jit(jnm.nm_pattern_inaxis, static_argnames=("n", "m"))
+_JIT_TRANSPOSABLE = jax.jit(jnm.nm_pattern_transposable, static_argnames=("n", "m", "iters"))
+
+
+@pytest.fixture
+def jitted_solvers(monkeypatch):
+    """``jnm.project_masks`` calls the jitted solvers."""
+    monkeypatch.setattr(jnm, "nm_pattern_inaxis", _JIT_INAXIS)
+    monkeypatch.setattr(jnm, "nm_pattern_transposable", _JIT_TRANSPOSABLE)
+
+
 def _scores(i, o, seed):
     """Seeded continuous |N(0, 1)| scores with many all-zero rows and
     columns (pruned weights score 0), so blocks hold ties."""
@@ -54,9 +68,9 @@ def test_solvers_equal_jax():
                                          (1, 4, 64, 48)]):
         s = _scores(i, o, seed)
         got = nm.nm_pattern_inaxis(torch.from_numpy(s), n, m)
-        np.testing.assert_array_equal(got.numpy(), np.asarray(jnm.nm_pattern_inaxis(jnp.asarray(s), n, m)))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(_JIT_INAXIS(jnp.asarray(s), n=n, m=m)))
         gi, go = nm.nm_pattern_transposable(torch.from_numpy(s), n, m)
-        wi, wo = jnm.nm_pattern_transposable(jnp.asarray(s), n, m)
+        wi, wo = _JIT_TRANSPOSABLE(jnp.asarray(s), n=n, m=m)
         np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
         np.testing.assert_array_equal(go.numpy(), np.asarray(wo))
         assert (gi.reshape(-1, m).sum(1) == n).all() and (go.reshape(-1, m).sum(1) == n).all()
@@ -79,7 +93,7 @@ def _model(name):
 
 
 @pytest.mark.parametrize("name", ["deit", "resnet50"])
-def test_project_masks_equal_jax(name):
+def test_project_masks_equal_jax(name, jitted_solvers):
     params, masks, state, tmasks = _model(name)
     patterns = [(2, 4, True), (1, 4, True), (2, 4, False)] if name == "deit" else [(2, 4, True)]
     for n, m, transposable in patterns:

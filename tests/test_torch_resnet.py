@@ -83,17 +83,17 @@ def test_resnet18_eval_and_train_mode_match_jax(image):
     tmodel.eval()
     with torch.no_grad():
         got = tmodel(torch.from_numpy(x)).numpy()
-    want = jmodel.apply(variables, jnp.asarray(x), train=False)
+    want = jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(variables, jnp.asarray(x))
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
 
     tmodel.train()
     stats = variables["batch_stats"]
+    train_apply = jax.jit(lambda v, x: jmodel.apply(v, x, train=True, mutable=["batch_stats"]))
     for n in range(1, 4):
         with torch.no_grad():
             got = tmodel(torch.from_numpy(x)).numpy()
-        want, updated = jmodel.apply(
-            {"params": variables["params"], "batch_stats": stats}, jnp.asarray(x),
-            train=True, mutable=["batch_stats"])
+        want, updated = train_apply(
+            {"params": variables["params"], "batch_stats": stats}, jnp.asarray(x))
         stats = updated["batch_stats"]
         np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5,
                                    err_msg=f"forward {n}")

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse fixture)
+from torch_port_fixtures import run_once
 from turboprune_tpu_torch.config.compose import compose
 from turboprune_tpu_torch.driver import run
 from turboprune_tpu_torch.harness import PruningHarness
@@ -146,8 +147,12 @@ def preempted_and_resumed(tmp_path_factory):
     Right after its level-1, epoch-0 slot save, the experiment dir is
     copied as it stands, beside it: the dir a preemption at that point
     leaves. The copy is resumed at level 1 through ``resume_experiment``
-    (the same ``base_dir``, which is part of the slot's config hash)."""
-    base = tmp_path_factory.mktemp("resume")
+    (the same ``base_dir``, which is part of the slot's config hash).
+    Run once per session (``run_once``)."""
+    return run_once(tmp_path_factory, "resume", _preempted_and_resumed)
+
+
+def _preempted_and_resumed(base: Path) -> dict:
     out = {}
 
     class Uninterrupted(PruningHarness):
@@ -186,14 +191,15 @@ def preempted_and_resumed(tmp_path_factory):
         f"experiment_params.resume_experiment_stuff.resume_expt_name={expt_b.name}",
         "experiment_params.resume_experiment_stuff.resume_level=1"]),
         device="cpu", harness_cls=Resumed)
-    out["end_r"] = _snapshot(out["r"])
+    out["end_r"] = _snapshot(out.pop("r"))
+    out["cfg"] = out.pop("a").cfg  # the harnesses themselves stay here
     return out
 
 
 def test_slot_header_at_the_preemption(preempted_and_resumed):
     meta = preempted_and_resumed["meta"]
     assert (meta["level"], meta["epoch"]) == (1, 0)
-    assert meta["config_hash"] == config_fingerprint(preempted_and_resumed["a"].cfg)
+    assert meta["config_hash"] == config_fingerprint(preempted_and_resumed["cfg"])
     assert meta["train_loader_epoch"] == 4  # three epochs of level 0, one of level 1
     assert [r["epoch"] for r in meta["level_rows"]] == [0]
     json.dumps(meta)

@@ -167,8 +167,9 @@ def test_role_checkpoint_is_served_by_role(expt):
 
 def test_unported_paths_raise(expt):
     fleet = compose("serve", ["serve=fleet"])
-    with pytest.raises(ConfigError, match="fleet"):
+    with pytest.raises(ConfigError, match="fleet") as refused:
         build_server(fleet, expt_dir=str(expt["dir"]), device="cpu")
+    assert "ROADMAP.md queue A, item 16" in str(refused.value)
     for kw in ({"backend": "compact"}, {"compact": True}, {"backend": "nm"}):
         with pytest.raises(NotImplementedError, match="sparse-execution slice"):
             InferenceEngine.from_experiment(expt["dir"], device="cpu", **kw)

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import run_experiment_torch
-from torch_port_fixtures import one_torch_thread, write_image_folder  # noqa: F401
+from torch_port_fixtures import one_torch_thread, run_once, write_image_folder  # noqa: F401
 from turboprune_tpu_torch.utils import ExperimentCheckpoints
 from turboprune_tpu_torch.utils.checkpoint import ExperimentCheckpoints as Ckpts
 
@@ -45,7 +45,10 @@ def _main(base: Path, data: Path, extra: list) -> Path:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    root = tmp_path_factory.mktemp("tpk_slice")
+    return run_once(tmp_path_factory, "tpk_slice", _runs)
+
+
+def _runs(root: Path) -> dict:
     data = root / "imagenet"
     # 18 training images (2 steps of 8, drop-last) and 10 for evaluation
     # (two batches, the second padded), 64 x 48 and 48 x 64.

@@ -157,7 +157,7 @@ def test_bridge_round_trip_and_magnitude_masks():
     for jmodel, variables, tmodel in (_vgg_pair(64), _densenet_pair(False, 64)):
         params = jax.device_get(variables["params"])
         rng = np.random.default_rng(3)
-        ones = jmasking.make_masks(params)
+        ones = jax.jit(jmasking.make_masks)(params)
         jmasks = jax.tree.map(lambda m: None if m is None else rng.random(m.shape) < 0.7,
                               ones, is_leaf=lambda m: m is None)
         state, masks = bridge.params_from_flax(params, jmasks, variables["batch_stats"])
@@ -169,8 +169,10 @@ def test_bridge_round_trip_and_magnitude_masks():
             np.testing.assert_array_equal(_flat(back_masks)[k], v)
         for k, v in _flat(variables["batch_stats"]).items():
             np.testing.assert_array_equal(_flat(bridge.batch_stats_to_flax(state))[k], v)
-        want = jax.device_get(jax_prune_the_model("mag", jmodel, variables, jmasks, 0.3,
-                                                  jax.random.PRNGKey(0)))
+        # Under jax.jit: op by op, the global threshold's sort and every
+        # layer's compare compile one by one.
+        want = jax.device_get(jax.jit(lambda v, m: jax_prune_the_model(
+            "mag", jmodel, v, m, 0.3, jax.random.PRNGKey(0)))(variables, jmasks))
         _, want = bridge.params_from_flax(params, want)
         got = prune_the_model("mag", tmodel, masks, 0.3)
         assert got.keys() == want.keys()

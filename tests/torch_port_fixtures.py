@@ -23,6 +23,38 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+def run_once(tmp_path_factory, name: str, produce):
+    """``produce(root)`` computed once per test session, by whichever
+    worker asks first. Under pytest-xdist each worker's base temp dir lies
+    in one directory of the session: the first worker to ask runs
+    ``produce`` there under a file lock and saves its result with
+    ``torch.save``; the others wait on the lock and load it, so a module's
+    expensive runs are not repeated on every worker its tests land on.
+    Without xdist it runs in a temp dir of its own. ``produce`` writes its
+    files under ``root`` and returns a picklable result; tests only read
+    them."""
+    import fcntl
+    import os
+    import shutil
+
+    if "PYTEST_XDIST_WORKER" not in os.environ:
+        return produce(tmp_path_factory.mktemp(name))
+    session = tmp_path_factory.getbasetemp().parent
+    root = session / f"run_once_{name}"
+    result = root / "result.pt"
+    with open(session / f"run_once_{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not result.exists():
+            if root.exists():  # a run that raised half way
+                shutil.rmtree(root)
+            root.mkdir()
+            out = produce(root)
+            torch.save(out, root / "result.tmp")
+            os.replace(root / "result.tmp", result)
+            return out
+    return torch.load(result, weights_only=False)
+
+
 TINY = dict(num_classes=10, patch_size=16, embed_dim=32, depth=2, num_heads=2)
 IMAGE = 32
 

@@ -141,6 +141,7 @@ def run(
         close = getattr(harness.loaders, "close", None)
         if close is not None:
             close()
+        harness.wandb.finish()
     if ep.checkpoint_every_epochs:
         # The run is complete: a slot left behind would be restored by a
         # later resume of this dir at its level.

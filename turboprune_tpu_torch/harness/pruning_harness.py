@@ -33,9 +33,16 @@ coordinates: the level and rewind checkpoints, the mid-level slot, the
 CSV's sparsity, the driver's prune. ``compact_eval`` evaluates on the
 compacted model (``compact_params``) when no plan is live.
 
+Pretrained weights (``model_params.pretrained_path``, a local timm DeiT
+state_dict, ``models/pretrained.py``) land on the fresh CPU init before
+it moves to the device, so the level-0 ``model_init`` save (the imp rewind
+target) and any mask computed from the weights see them. With
+``ScheduleFreeSGD`` every evaluation reads the optimizer's averaged
+weights (``train.eval_weights``). With ``experiment_params.use_wandb``
+every epoch row also goes to wandb (``utils/wandb_logging.py``).
+
 Options of the JAX harness that later slices port raise here, naming the
-ROADMAP.md item: more than one device, the profiler trace, pretrained
-weights.
+ROADMAP.md item: more than one device, the profiler trace.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ import torch
 from ..config.schema import MainConfig, parse_nm
 from ..data import create_loaders
 from ..models import create_model
+from ..models.pretrained import load_pretrained
 from ..ops import masking
 from ..serve.metrics import ServeMetrics
 from ..sparse import (
@@ -74,9 +82,11 @@ from ..train import (
     create_train_state,
     eval_forward,
     eval_step,
+    eval_weights,
     make_train_step,
     mark_buffers_static,
     reset_optimizer,
+    restart_schedule,
     train_forward,
 )
 from ..utils import (
@@ -91,6 +101,7 @@ from ..utils import (
     model_state_dict,
     resolve_device,
 )
+from ..utils.wandb_logging import WandbRun
 
 # A streaming loader's prefetch-engine stage times, in each epoch's row.
 PIPELINE_STAGES = ("decode_wait_s", "transfer_wait_s", "consumer_wait_s")
@@ -109,7 +120,6 @@ def refuse_unported(cfg: MainConfig) -> None:
         "experiment_params.num_devices > 1": (ep.num_devices > 1, "item 13"),
         "experiment_params.model_parallelism > 1": (ep.model_parallelism > 1, "item 13"),
         "experiment_params.profile_dir": (bool(ep.profile_dir), "item 17"),
-        "model_params.pretrained_path": (bool(cfg.model_params.pretrained_path), "item 12"),
     }
     for knob, (on, item) in unported.items():
         if on:
@@ -150,6 +160,12 @@ class PruningHarness:
             image_size=dp.image_size,
         )
         model.init_weights(torch.Generator().manual_seed(ep.seed))
+        stuff = ep.resume_experiment_stuff
+        resumes_from_a_level = ep.resume_experiment and stuff is not None and stuff.resume_level > 0
+        if cfg.model_params.pretrained_path and not resumes_from_a_level:
+            # The fresh init only: a run resumed at a level > 0 takes every
+            # weight from the level below's checkpoint.
+            load_pretrained(cfg.model_params.pretrained_path, model)
         self.model = model.to(self.device)
         self.loaders = create_loaders(cfg, self.device)
         self.ckpts = ExperimentCheckpoints(self.expt_dir)
@@ -158,6 +174,7 @@ class PruningHarness:
         self.config_hash = config_fingerprint(cfg)
         self.run_id = Path(self.expt_dir).name
         self.metrics = MetricsLogger(self.expt_dir, self.prefix)
+        self.wandb = WandbRun(cfg, self.prefix, self.expt_dir)
         self.steps_per_epoch = len(self.loaders.train_loader)
         if ep.max_steps_per_epoch:
             self.steps_per_epoch = min(self.steps_per_epoch, ep.max_steps_per_epoch)
@@ -225,10 +242,13 @@ class PruningHarness:
         """WR + ``rewind_optimizer``: restore the optimizer state captured
         at rewind_epoch. The schedule still restarts from step 0: the lr
         comes from the level's own step count, which the restore leaves
-        at 0; Adam's own step count comes back with its moments."""
+        at 0; Adam's own step count comes back with its moments, and
+        schedule-free SGD's averaging count with its ``z``
+        (``restart_schedule``)."""
         pp = self.cfg.pruning_params
         if level > 0 and pp.training_type == "wr" and pp.rewind_optimizer:
             self.state.optimizer.load_state_dict(self.ckpts.load_optimizer(OPTIMIZER_REWIND))
+            restart_schedule(self.state.optimizer)
 
     # --------------------------------------------------------------- loops
     def train_batches(self) -> Iterator[tuple]:
@@ -292,10 +312,14 @@ class PruningHarness:
     def evaluate(self) -> dict:
         """Full test pass; padded rows (label -1) count nowhere. With
         ``compact_eval`` and no live plan, on the compacted model; with a
-        plan live, the plan's model is the level's compact evaluation."""
-        if self.cfg.experiment_params.compact_eval and self._plan_ctx is None:
-            return self._evaluate_compacted()
-        return self._evaluate_on(self.state.model, self.state.masks, self._eval_forward)
+        plan live, the plan's model is the level's compact evaluation.
+        With schedule-free SGD, on its averaged weights, swapped into the
+        params' storage for the pass (``compact_eval`` folds and compacts
+        them) and the trained weights copied back after."""
+        with eval_weights(self.state.optimizer):
+            if self.cfg.experiment_params.compact_eval and self._plan_ctx is None:
+                return self._evaluate_compacted()
+            return self._evaluate_on(self.state.model, self.state.masks, self._eval_forward)
 
     def _evaluate_on(self, model, masks, forward) -> dict:
         sums = None
@@ -510,6 +534,7 @@ class PruningHarness:
         row["max_test_acc"] = max_test_acc
         row["sparsity"] = masking.overall_sparsity(self._full_masks())
         self.metrics.log_epoch(row)
+        self.wandb.log(row)
         self._log_console(row)
         if snapshot_ok and row["epoch"] == self.cfg.pruning_params.rewind_epoch:
             full = self._full_state()

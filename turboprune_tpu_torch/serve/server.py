@@ -258,8 +258,8 @@ def build_server(
     if sc.fleet is not None:
         raise ConfigError(
             "serve.fleet: fleet serving is not yet ported to "
-            "turboprune_tpu_torch (ROADMAP.md) — serve one experiment dir "
-            "with serve=default"
+            "turboprune_tpu_torch (ROADMAP.md queue A, item 16) — serve one "
+            "experiment dir with serve=default"
         )
     target = expt_dir or sc.expt_dir
     if not target:

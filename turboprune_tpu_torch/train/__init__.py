@@ -1,6 +1,6 @@
 """Training layer: state, optimizers, LR schedules, train/eval steps."""
 
-from .optim import create_optimizer, set_lr
+from .optim import ScheduleFreeSGD, create_optimizer, eval_weights, restart_schedule, set_lr
 from .schedules import create_schedule
 from .state import TrainState, create_train_state, reset_optimizer
 from .steps import (
@@ -21,6 +21,9 @@ __all__ = [
     "create_train_state",
     "reset_optimizer",
     "create_optimizer",
+    "ScheduleFreeSGD",
+    "eval_weights",
+    "restart_schedule",
     "set_lr",
     "create_schedule",
     "make_train_step",

@@ -17,8 +17,8 @@ reference's ``torch.compile(model, mode="reduce-overhead")``. On CUDA that
 is inductor under CUDA graphs, so a step's forward and its AOTAutograd
 backward are each one graph replay with no per-kernel host dispatch. What
 stays eager either way: the backward call, ``optimizer.step()`` (foreach
-SGD or AdamW), ``set_lr`` (a Python float that must not become a graph
-constant) and the step counter.
+SGD or AdamW, or schedule-free SGD), ``set_lr`` (a Python float that must
+not become a graph constant) and the step counter.
 
 Dropout (VGG's classifier, a ViT with a rate) draws from no global
 generator: the harness owns a ``DropoutNoise`` (one ``torch.Generator``
@@ -174,7 +174,7 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Batch) -> dict:
         images, labels = batch
-        set_lr(state.optimizer, schedule(state.step))
+        set_lr(state.optimizer, schedule(state.step), schedule)
         state.model.train()
         # Before the forward: a compiled step's previous gradients live in
         # its CUDA-graph memory, which the next replay reuses.
