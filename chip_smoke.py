@@ -22,10 +22,23 @@ result line):
             K1 at the served and at the training shape.
 3. slice    write a DeiT-Small/16 @ 224 experiment dir (seeded init; level
             1 magnitude-pruned to density 0.2), start the port's HTTP server
-            on it, answer concurrent /predict requests, read /healthz and
-            /metrics, check that every forward launched the flash kernel
-            once per encoder block, and hold the served logits against the
-            same checkpoint's forward with plain dense attention.
+            on it (each bucket 1/8/32/128 compiled by inductor and captured
+            in a CUDA graph), answer concurrent /predict requests, read
+            /healthz and /metrics, count K1 with the profiler (12 launches
+            in every replayed forward, none eager after the build), hold
+            the served logits against the same checkpoint's forward with
+            plain dense attention, and time each bucket's replay beside the
+            eager forward of the same model (device busy and idle of both).
+3b. fleet   serve.fleet over one DeiT-Small/16 @ 224 experiment dir with a
+            dense level, a level with half of each block's MLP hidden units
+            dead and an input-axis 2:4 level (backend auto: masked, compact,
+            nm), buckets [1, 8], two resident models, replicas 2 and a
+            persistent cache: each model over HTTP against the masked-dense
+            forward of its checkpoint, an LRU eviction that must give back
+            the device memory its page-in took, an open-loop sweep at 0.3 / 0.7 /
+            1.5x of the measured capacity (p50 / p99 / p99.9, goodput,
+            sheds, the knee), and a warm rebuild with inductor's and
+            Triton's caches emptied: 0 inductor compiles, logits bit for bit.
 4. train    run_experiment_torch's main: two IMP levels (density 1.0, then
             0.8 by global magnitude with a rewind to model_init) of a
             DeiT-Small/16 @ 224 with flash attention at batch 256 in bf16 on
@@ -100,7 +113,7 @@ result line):
             DataLoader workers, grain's order; runs after imagenet) from an
             ImageFolder of the imagenet phase's JPEGs symlinked over 1000
             class directories: the host decode rate at 224 by worker count
-            and the workers' start-up (fork, and forkserver beside it); a
+            and the workers' start-up (forked); a
             device batch against the port's CPU decode of the same stream
             positions; two IMP levels of 8 steps at the imagenet phase's
             batch (densities, rewind, finite losses, no K1/K2/K3 launch) and
@@ -109,7 +122,7 @@ result line):
             tier 1 of the mid-level slot (a preempted run resumed on the
             uninterrupted run's batches, device hashes); model_params=mp_vgg16
             and mp_densenet121 at the batch their measured peak memory allows:
-            two levels of 2 steps, the step's time, busy time by kind, FLOP
+            two levels of 1 step, the step's time, busy time by kind, FLOP
             bound and peak memory.
 11. sparse  the sparse execution (runs after imagenet_folder): imagenet_imp
             with VGG-16-BN at 224 (bf16, batch 256, synthetic data, two
@@ -832,22 +845,62 @@ KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel
 # profiler has twice reported 35 K1 launches in 3 replayed compiled DeiT
 # steps whose CUDA graphs hold 12 each, a record lost near the start of the
 # profile; so a profile opens with one call that is not counted, and only
-# the kernels between the two spins that enclose the counted calls are read.
+# the kernels between the first two of three spins, which enclose the
+# counted calls, are read. Once it kept 1 of the 3 spins of a profiled eager
+# DenseNet-121 or VGG-16 step: a profile that lost a spin is not read but
+# taken again, at most PROFILE_ATTEMPTS times in all. Kineto drops a device
+# record that ends after the profile's close on the host's clock, which it
+# reaches from the device's by an estimate; so a profile stays open for
+# PROFILE_TAIL_S after its last device work has finished.
 MARKER_CYCLES = 10_000_000
 MARKER_KERNEL = "spin_kernel"
+PROFILE_ATTEMPTS = 3
+PROFILE_TAIL_S = 0.1
 
 
-def _between_markers(events: list) -> list:
-    """Of device events (start, end, name) in any order, those between the
-    two consecutive marker kernels that enclose the most events: the
-    counted calls, where the layout is uncounted call, marker, counted
-    calls, marker, marker."""
-    evs = sorted(events)
-    marks = [i for i, ev in enumerate(evs) if MARKER_KERNEL in ev[2]]
-    if len(marks) < 2:
-        raise AssertionError(f"the profile holds {len(marks)} of the 3 marker kernels")
-    a, b = max(zip(marks, marks[1:]), key=lambda ab: ab[1] - ab[0])
-    return evs[a + 1:b]
+def _device_events(prof) -> list:
+    """The device events of a finished profile as (start us, end us, name),
+    read from kineto's raw events: building the profiler's event tree
+    (``prof.events()``, ``key_averages()``) costs seconds for a profiled
+    eager ResNet-50 epoch, this a fraction of it."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+            for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+
+
+def _marked_profile(first, counted, mode=contextlib.nullcontext) -> tuple[list, object, int]:
+    """Under ``mode()`` and torch.profiler: ``first()`` (not counted), a
+    marker, ``counted()``, two markers. Returns the device events (start,
+    end, name) between the first two markers (none when the profiler
+    records no device activity), what ``counted`` returned, and the number
+    of profiles taken: one that did not record all three markers is taken
+    again, calls included. Both calls must return only when their device
+    work is done (replays run on the engine's own stream, not the
+    markers')."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            first()
+            torch.cuda._sleep(MARKER_CYCLES)
+            out = counted()
+            torch.cuda._sleep(MARKER_CYCLES)
+            torch.cuda._sleep(MARKER_CYCLES)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_TAIL_S)
+        evs = sorted(_device_events(prof))
+        del prof
+        if not evs:
+            return [], out, attempt
+        marks = [i for i, ev in enumerate(evs) if MARKER_KERNEL in ev[2]]
+        if len(marks) == 3:
+            return evs[marks[0] + 1:marks[1]], out, attempt
+        log(f"profile {attempt} of at most {PROFILE_ATTEMPTS} recorded {len(marks)} of "
+            f"its 3 marker kernels among {len(evs)} device events: not read")
+    raise AssertionError(f"{PROFILE_ATTEMPTS} profiles in a row lost a marker kernel")
 
 
 def _device_busy_ms(
@@ -860,26 +913,21 @@ def _device_busy_ms(
     per call). Zeros when the profiler records no device activity. With
     ``counts``, fills it with the launches of each of the port's kernels
     over the ``reps`` calls. The profile holds one more call of ``fn``
-    before the ``reps`` counted ones, and marker kernels around them."""
+    before the ``reps`` counted ones (``_marked_profile``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     assert reps >= 2, "the counted calls must outnumber the uncounted one"
-    mode = torch.inference_mode() if inference else torch.enable_grad()
-    with mode, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda._sleep(MARKER_CYCLES)
+
+    def counted():
         for _ in range(reps):
             fn()
-        torch.cuda._sleep(MARKER_CYCLES)
-        torch.cuda._sleep(MARKER_CYCLES)
-        torch.cuda.synchronize()
-    device = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not device:
+
+    events, _, _ = _marked_profile(
+        fn, counted, torch.inference_mode if inference else torch.enable_grad)
+    if not events:
         return 0.0, dict.fromkeys(KERNEL_NAMES, 0.0), []
     by_name: dict = {}
-    for start, end, name in _between_markers(device):
+    for start, end, name in events:
         ms, n = by_name.get(name, (0.0, 0))
         by_name[name] = (ms + (end - start) / reps / 1e3, n + 1)
     ours = dict.fromkeys(KERNEL_NAMES, 0.0)
@@ -892,6 +940,25 @@ def _device_busy_ms(
     ranked = sorted(((name[:60], ms) for name, (ms, _) in by_name.items()),
                     key=lambda kv: -kv[1])[:top]
     return sum(ms for ms, _ in by_name.values()), ours, ranked
+
+
+def _k1_count(events: list) -> int:
+    return sum(1 for _, _, name in events if KERNEL_NAMES[0] in name)
+
+
+def _replay_timer(engine, bucket: int):
+    """One synchronous replay of ``bucket``'s captured graph on the
+    engine's serve stream, with its static input as it stands."""
+    import torch
+
+    b = engine._executable(bucket)
+
+    def replay():
+        with b.lock, torch.cuda.stream(b.stream):
+            b.graph.replay()
+        b.stream.synchronize()
+
+    return b, replay
 
 
 def phase_slice() -> dict:
@@ -907,33 +974,52 @@ def phase_slice() -> dict:
     sizes = (1, 5, 40)
     requests = [rng.normal(size=(n, 224, 224, 3)).astype(np.float32) for n in sizes]
     bodies = [json.dumps({"instances": x.tolist()}).encode() for x in requests]
+    warm_body = json.dumps({"instances": requests[0].tolist()}).encode()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_expt_") as tmp:
         expt = write_experiment(Path(tmp))
         serve_cfg = compose("serve", ["serve.port=0"])
         assert serve_cfg.serve.batch_buckets == [1, 8, 32, 128]
 
-        # ---- the main path, with the kernel's count at 0 just before it
+        # ---- the main path, with the kernel's count at 0 just before it:
+        # the build (compile, warm-up and capture of every bucket: eager K1
+        # launches, counted by the wrapper), then requests answered by
+        # replays (no Python per kernel: K1 counted by the profiler)
         flash_fwd_cuda.launches = 0
         t0 = time.perf_counter()
         server = build_server(serve_cfg, expt_dir=tmp, device="cuda")
         startup_s = time.perf_counter() - t0
+        build_launches = flash_fwd_cuda.launches
+        engine = server.engine
+        m = engine.metrics
         try:
             server.start_background()
             base = f"http://127.0.0.1:{server.port}"
-            with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
-                results = list(pool.map(lambda b: _post(f"{base}/predict", b), bodies))
+
+            def answered():
+                before = m.counter("compile_cache_hits_total")
+                with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+                    res = list(pool.map(lambda b: _post(f"{base}/predict", b), bodies))
+                return res, int(m.counter("compile_cache_hits_total") - before)
+
+            events, (results, forwards), profiles = _marked_profile(
+                lambda: _post(f"{base}/predict", warm_body), answered)
             health = json.loads(_get(f"{base}/healthz"))
             metrics_text = _get(f"{base}/metrics")
         finally:
             drain = server.graceful_shutdown(drain_timeout_s=30)
-        launches = flash_fwd_cuda.launches
+        replay_launches = _k1_count(events)
+        eager_after = flash_fwd_cuda.launches - build_launches
         # ---- end of the main path
-        engine = server.engine
-        m = engine.metrics
-        forwards = int(m.counter("bucket_first_runs_total") + m.counter("bucket_warm_runs_total"))
-        log(f"serve: startup (load + warmup of {list(engine.buckets)}) {startup_s:.2f} s; "
-            f"forwards {forwards}; launches {launches}; drain {drain}")
+        misses = int(m.counter("compile_cache_misses_total"))
+        log(f"serve: startup (load, then compile + warm-up + CUDA-graph capture of "
+            f"{list(engine.buckets)}) {startup_s:.2f} s, compile seconds "
+            f"{m.counter('compile_seconds_total'):.2f}, inductor compiles "
+            f"{int(m.counter('compiles_total'))}; compile-cache misses {misses}, hits "
+            f"{int(m.counter('compile_cache_hits_total'))}; K1 launches: {build_launches} "
+            f"eager in the build (3 forwards a bucket: 2 warm, 1 capture), "
+            f"{replay_launches} in {forwards} replayed forwards (profiler), {eager_after} "
+            f"eager after the build; drain {drain}")
         for (code, body, ms), n in zip(results, sizes):
             log(f"request of {n} images: HTTP {code}, {ms:.1f} ms client-side "
                 f"(JSON encode/decode included)")
@@ -944,17 +1030,26 @@ def phase_slice() -> dict:
             f"batches {int(m.counter('batches_total'))}, images {int(m.counter('images_total'))}")
         if health.get("status") != "ok" or health.get("level") != 1:
             raise AssertionError(f"/healthz: {health}")
-        if "turboprune_serve_requests_total 3" not in metrics_text:
-            raise AssertionError("/metrics does not count the 3 requests")
+        if health.get("compiled_buckets") != [1, 8, 32, 128]:
+            raise AssertionError(f"/healthz compiled buckets {health.get('compiled_buckets')}")
+        sent = profiles * (1 + len(bodies))
+        if f"turboprune_serve_requests_total {sent}" not in metrics_text.splitlines():
+            raise AssertionError(f"/metrics does not count the {sent} requests")
         if not drain["drained"]:
             raise AssertionError(f"drain left requests unanswered: {drain}")
-        if launches == 0:
-            raise AssertionError("flash_fwd never launched on the main path")
-        if launches != DEPTH * forwards:
+        if misses != len(engine.buckets):
+            raise AssertionError(f"{misses} compile-cache misses for {len(engine.buckets)} buckets")
+        if build_launches != 3 * DEPTH * len(engine.buckets):
+            raise AssertionError(f"K1 launched {build_launches} times in the build; expected "
+                                 f"{3 * DEPTH} per bucket")
+        if eager_after:
+            raise AssertionError(f"{eager_after} eager K1 launches after the build: the "
+                                 "requests did not run on the replayed graphs")
+        if forwards == 0 or replay_launches != DEPTH * forwards:
             raise AssertionError(
-                f"flash_fwd launched {launches} times for {forwards} "
-                f"forwards; expected {DEPTH} per forward"
-            )
+                f"K1 ran {replay_launches} times in {forwards} replayed forwards; "
+                f"expected {DEPTH} per forward")
+        launches = build_launches + replay_launches
 
         # ---- the served logits against plain dense attention, same weights
         served = [np.asarray(body["logits"], np.float32) for _, body, _ in results]
@@ -982,35 +1077,306 @@ def phase_slice() -> dict:
         if err > LOGIT_ATOL or not agree[decided].all():
             raise AssertionError("served logits disagree with the dense-attention forward")
 
-        # ---- per-bucket forward time (outside the counted main path)
+        # ---- per bucket: the replayed forward beside the eager forward of
+        # the same (served, mask-folded) model (outside the counted path)
         per_bucket = {}
         for b in engine.buckets:
             x = rng.normal(size=(b, 224, 224, 3)).astype(np.float32)
             xt = torch.from_numpy(x).cuda()
             with torch.inference_mode():
-                flash_ms = _call_ms(lambda: engine.model(xt), reps=10)
+                eager_ms = _call_ms(lambda: engine.model(xt), reps=10)
                 dense_ms = _call_ms(lambda: dense(xt), reps=10)
+                eager_busy, _, _ = _device_busy_ms(lambda: engine.model(xt), top=None)
+            engine.predict(x)  # the bucket's static input now holds x
+            bk, replay = _replay_timer(engine, b)
+            with torch.cuda.stream(bk.stream):
+                replay_ms = _call_ms(replay, reps=10)
             t_pred = []
             for _ in range(5):
                 t1 = time.perf_counter()
                 engine.predict(x)
                 t_pred.append((time.perf_counter() - t1) * 1e3)
-            busy_ms, ours, top = _device_busy_ms(lambda: engine.model(xt))
+            predict_ms = statistics.median(t_pred)
+            counts: dict = {}
+            busy_ms, ours, top = _device_busy_ms(replay, counts=counts)
             k1_ms = ours["flash_fwd_kernel"]
-            per_bucket[b] = (flash_ms, dense_ms, statistics.median(t_pred))
-            log(f"bucket {b}: served forward {flash_ms:.3f} ms (CUDA events around "
-                f"one call, host work included; dense-attention forward "
-                f"{dense_ms:.3f} ms); engine.predict "
-                f"{statistics.median(t_pred):.3f} ms host-side incl. copies; "
-                + (f"device busy {busy_ms:.3f} ms per forward (idle "
-                   f"{max(0.0, 1 - busy_ms / flash_ms) * 100:.1f}%), flash_fwd "
-                   f"kernels {k1_ms:.3f} ms of it ({k1_ms / DEPTH:.4f} ms per "
-                   f"launch)" if busy_ms else
+            per_bucket[b] = {"replay_ms": replay_ms, "eager_ms": eager_ms,
+                             "predict_ms": predict_ms, "busy_ms": busy_ms,
+                             "eager_busy_ms": eager_busy, "dense_ms": dense_ms}
+            log(f"bucket {b}: replayed forward {replay_ms:.3f} ms (CUDA events around one "
+                f"replay on the serve stream), eager forward of the same model "
+                f"{eager_ms:.3f} ms (host work included; dense attention {dense_ms:.3f} ms); "
+                f"engine.predict {predict_ms:.3f} ms host-side incl. the copies in and out; "
+                + (f"device busy {busy_ms:.3f} ms per replay (idle "
+                   f"{max(0.0, 1 - busy_ms / replay_ms) * 100:.1f}%), eager busy "
+                   f"{eager_busy:.3f} ms (idle {max(0.0, 1 - eager_busy / eager_ms) * 100:.1f}%); "
+                   f"flash_fwd {k1_ms:.3f} ms of the replay ({k1_ms / DEPTH:.4f} ms per "
+                   f"launch, {counts.get(KERNEL_NAMES[0], 0)} launches in 3 replays)"
+                   if busy_ms else
                    "device busy time not measured (the profiler saw no device activity)"))
+            if busy_ms and counts.get(KERNEL_NAMES[0], 0) != 3 * DEPTH:
+                raise AssertionError(f"bucket {b}: K1 ran {counts.get(KERNEL_NAMES[0], 0)} "
+                                     f"times in 3 replays")
             if top:
-                log(f"bucket {b} top device kernels (ms per forward): "
+                log(f"bucket {b} top device kernels (ms per replay): "
                     + "; ".join(f"{name} {ms:.3f}" for name, ms in top))
+        engine.close()
     return {"launches": launches, "per_bucket": per_bucket}
+
+
+# ---------------------------------------------------------------- fleet
+# Fleet serving (serve.fleet): one DeiT-Small/16 @ 224 experiment dir at
+# the published widths with three saved levels whose masks make the
+# planner pick each backend under backend=auto. Cut: buckets [1, 8] (of
+# the shipped 1/8/32/128: each of the three models compiles every bucket,
+# cold and again in the warm rebuild), max_batch 8 to match.
+FLEET_BUCKETS = (1, 8)
+FLEET_LOADS = (0.3, 0.7, 1.5)         # offered load as a share of capacity
+FLEET_SWEEP_S = 2.0                   # seconds of arrivals per load point
+FLEET_MEMORY_MARGIN = 16 * 2 ** 20    # bytes an eviction or close may leave behind
+FLEET_KINDS = {"level_0": "masked", "level_1": "compact", "level_2": "nm"}
+
+
+def write_fleet_experiment(expt_dir: Path, seed: int = 0) -> dict:
+    """DeiT-Small/16 @ 224, seeded init; level 0 dense, level 1 with a
+    seeded half of each block's MLP hidden units dead (their fc1 rows
+    masked, their fc1 biases zero: compaction can slice them), level 2
+    2:4 along each layer's input axis, by magnitude (whole input rows
+    dead, no output dead: N:M gathers it, nothing compacts)."""
+    import torch
+
+    from turboprune_tpu_torch.config.compose import compose
+    from turboprune_tpu_torch.models import create_model
+    from turboprune_tpu_torch.ops import masking
+    from turboprune_tpu_torch.sparse import project_masks
+    from turboprune_tpu_torch.utils import ExperimentCheckpoints, save_config
+
+    cfg = compose("imagenet_er_balanced",
+                  ["model_params=mp_deit_small", "model_params.attention_impl=flash"])
+    save_config(expt_dir, cfg)
+    dp = cfg.dataset_params
+    model = create_model(cfg.model_params.model_name, dp.num_classes, dp.dataset_name,
+                         image_size=dp.image_size)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    ones = masking.make_masks(model)
+    g = torch.Generator().manual_seed(seed + 1)
+    dead_state = {k: v.clone() for k, v in state.items()}
+    dead = dict(ones)
+    for i in range(DEPTH):
+        path = f"block{i}/mlp/fc1/kernel"
+        hidden = ones[path].shape[0]
+        units = torch.randperm(hidden, generator=g)[: hidden // 2]
+        m = ones[path].clone()
+        m[units] = False
+        dead[path] = m
+        dead_state[f"block{i}.mlp.fc1.bias"][units] = 0.0
+    nm = project_masks(state, ones, 2, 4, transposable=False)[0]
+    levels = [(state, ones), (dead_state, dead), (state, nm)]
+    ckpts = ExperimentCheckpoints(expt_dir)
+    for level, (s, masks) in enumerate(levels):
+        ckpts.save_level(level, {"params": s, "masks": masks, "batch_stats": {}})
+    log("fleet experiment: deit_small_patch16_224, flash, levels 0-2 at densities "
+        + ", ".join(f"{masking.overall_density(m):.4f}" for _, m in levels))
+    return {"levels": levels, "cfg": cfg}
+
+
+def phase_fleet(card: str) -> dict:
+    import torch
+
+    from turboprune_tpu_torch.config.compose import compose
+    from turboprune_tpu_torch.models import create_model
+    from turboprune_tpu_torch.ops import masking
+    from turboprune_tpu_torch.ops.flash import flash_fwd_cuda
+    from turboprune_tpu_torch.serve import (FleetEngine, ModelRegistry, build_server,
+                                            open_cache, sweep_offered_load)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(FLEET_BUCKETS[-1] + 1, 224, 224, 3)).astype(np.float32)  # 8 + 1
+    body_for = {m: json.dumps({"instances": x.tolist(), "model": m}).encode()
+                for m in FLEET_KINDS}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        expt_dir, cache_dir = Path(tmp) / "expt", Path(tmp) / "aot"
+        expt_dir.mkdir()
+        expt = write_fleet_experiment(expt_dir)
+        cfg = compose("serve", [
+            "serve=fleet", "serve.port=0", "serve.warmup=false",
+            f"serve.batch_buckets=[{','.join(map(str, FLEET_BUCKETS))}]",
+            f"serve.max_batch={FLEET_BUCKETS[-1]}",
+            f"serve.fleet.expt_dirs=[{expt_dir}]", "serve.fleet.max_resident_models=2",
+            "serve.fleet.replicas=2", f"serve.fleet.aot_cache_dir={cache_dir}",
+            "serve.fleet.backend=auto",
+        ])
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+
+        # ---- the main path: every model over HTTP, K1's count at 0 just
+        # before it. level_0 is asked for again before level_2, so level_2's
+        # page-in evicts level_1, the least recently used (and not the
+        # first model a request thread paged in, whose page-in also holds
+        # what the process allocates once)
+        flash_fwd_cuda.launches = 0
+        server = build_server(cfg, device="cuda")
+        fleet = server.fleet
+        page_out = fleet._page_out
+        evictions = []
+
+        def measured_page_out(r):
+            # Instrumentation only: the bytes an eviction gives back.
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            page_out(r)
+            torch.cuda.synchronize()
+            evictions.append((r.spec.model_id, before - torch.cuda.memory_allocated()))
+
+        fleet._page_out = measured_page_out
+        served, page_in, resident_bytes = {}, {}, {}
+        try:
+            server.start_background()
+            url = f"http://127.0.0.1:{server.port}/predict"
+            for model_id in ("level_0", "level_1", "level_0", "level_2"):
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                code, body, _ = _post(url, body_for[model_id])
+                page_in.setdefault(model_id, time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                resident_bytes.setdefault(model_id, torch.cuda.memory_allocated() - before)
+                if code != 200 or body["model"] != model_id:
+                    raise AssertionError(f"/predict {model_id} -> {code} {body.get('model')}")
+                served[model_id] = (np.asarray(body["logits"], np.float32), body["backend"])
+            health = json.loads(_get(url.replace("/predict", "/healthz")))
+            metrics_text = _get(url.replace("/predict", "/metrics"))
+            launches = flash_fwd_cuda.launches
+            # ---- end of the main path
+
+            hub = fleet.hub
+            for model_id, kind in FLEET_KINDS.items():
+                row = health["models"][model_id]
+                log(f"fleet {model_id}: backend {served[model_id][1]} (want {kind}), first "
+                    f"request {page_in[model_id]:.2f} s (page-in: load, plan, compile + "
+                    f"capture of {list(FLEET_BUCKETS)}), compile seconds "
+                    f"{hub.counter('compile_seconds_total', model_id):.2f}, inductor compiles "
+                    f"{int(hub.counter('compiles_total', model_id))}, aot cache misses "
+                    f"{int(hub.counter('aot_cache_miss_total', model_id))}; resident "
+                    f"{row['resident']}" + (f", compaction {row['compaction']}" if
+                                            "compaction" in row else "")
+                    + (f", nm {row['nm']}" if "nm" in row else ""))
+                if served[model_id][1] != kind:
+                    raise AssertionError(f"{model_id} served by {served[model_id][1]}, not {kind}")
+            if sorted(fleet.resident_ids) != ["level_0", "level_2"]:
+                raise AssertionError(f"residents {fleet.resident_ids} after the LRU page-ins")
+            if 'turboprune_serve_requests_total{model="level_0"} 2' not in metrics_text:
+                raise AssertionError("/metrics lacks level_0's labelled request count")
+            if launches == 0:
+                raise AssertionError("flash_fwd never launched on the fleet's path")
+
+            # ---- the eviction gave back what the page-in took
+            (evicted, freed), = evictions
+            taken = resident_bytes[evicted]
+            log(f"fleet eviction: paging in level_2 evicted {evicted}, which gave back "
+                f"{freed / 2**20:.2f} MiB of the {taken / 2**20:.2f} MiB its page-in took "
+                f"(torch.cuda.memory_allocated; margin {FLEET_MEMORY_MARGIN / 2**20:.0f} MiB); "
+                f"page-ins took level_0 {resident_bytes['level_0'] / 2**20:.2f}, level_1 "
+                f"{resident_bytes['level_1'] / 2**20:.2f} MiB, level_2 "
+                f"{resident_bytes['level_2'] / 2**20:.2f} MiB net of the eviction")
+            if evicted != "level_1" or abs(freed - taken) > FLEET_MEMORY_MARGIN:
+                raise AssertionError("the eviction did not give its memory back")
+
+            # ---- each model's logits against the masked-dense forward of
+            # the same checkpoint (flash, bf16, eager)
+            ref_model = create_model("deit_small_patch16_224", 1000, "ImageNet",
+                                     compute_dtype=torch.bfloat16, attention_impl="flash",
+                                     image_size=224).cuda().eval()
+            for level, (state, masks) in enumerate(expt["levels"]):
+                model_id = f"level_{level}"
+                ref_model.load_state_dict(masking.apply_masks(state, masks))
+                with torch.inference_mode():
+                    ref = ref_model(torch.from_numpy(x).cuda()).float().cpu().numpy()
+                got = served[model_id][0]
+                err = float(np.abs(got - ref).max())
+                agree = float((got.argmax(1) == ref.argmax(1)).mean())
+                log(f"fleet {model_id} vs masked-dense forward: max abs diff {err:.4f} "
+                    f"(tol {LOGIT_ATOL}, max |logit| {float(np.abs(ref).max()):.3f}), "
+                    f"top-1 agreement {agree:.3f}, finite {bool(np.isfinite(got).all())}")
+                if got.shape != ref.shape or not np.isfinite(got).all() or err > LOGIT_ATOL:
+                    raise AssertionError(f"{model_id}'s served logits disagree")
+            del ref_model
+
+            # ---- the open-loop sweep on level_2 (resident), single images
+            one = x[:1]
+            depth = fleet.queue_depth
+            t0 = time.perf_counter()
+            futures = [fleet.submit(one, model="level_2")[0] for _ in range(depth // 2)]
+            for f in futures:
+                f.result(timeout=600)
+            capacity = len(futures) / (time.perf_counter() - t0)
+            sweep = sweep_offered_load(
+                lambda: (lambda: fleet.submit(one, model="level_2")[0]),
+                rps_list=[capacity * f for f in FLEET_LOADS], duration_s=FLEET_SWEEP_S,
+                seed=0, drain_timeout_s=60.0,
+                depth_probe=lambda: fleet._residents["level_2"].batcher.queue_depth)
+            log(f"fleet load: capacity {capacity:.1f} req/s (a burst of {len(futures)} "
+                f"single-image requests to level_2: replicas 2, max_batch {FLEET_BUCKETS[-1]}, "
+                f"queue {depth}) on {card}")
+            for p in sweep["points"]:
+                log(f"fleet load {p['offered_rps']:.1f} req/s offered: goodput "
+                    f"{p['goodput_rps']:.1f} req/s, p50 {p['p50_ms']} ms, p99 {p['p99_ms']} ms, "
+                    f"p99.9 {p['p999_ms']} ms, issued {p['issued']}, completed "
+                    f"{p['completed']}, shed {p['rejected']}, errors {p['errors']}, "
+                    f"unfinished {p['unfinished']}, max queue depth {p['max_queue_depth']}")
+                if p["errors"] or p["completed"] == 0:
+                    raise AssertionError(f"load point {p['offered_rps']}: {p}")
+            log(f"fleet load knee: {sweep['knee_rps']} req/s (saturated {sweep['saturated']})")
+        finally:
+            server.graceful_shutdown(drain_timeout_s=30)
+            server.close()
+        torch.cuda.synchronize()
+        end_bytes = torch.cuda.memory_allocated()
+        log(f"fleet closed: allocated {end_bytes / 2**20:.2f} MiB, before the fleet "
+            f"{base_bytes / 2**20:.2f} MiB (not held to the margin: it keeps what the "
+            f"process allocates once, as the first page-in's bytes show); aot cache "
+            f"{fleet.aot_cache.stats()}")
+
+        # ---- the warm rebuild: a second FleetEngine on the persistent
+        # cache, with inductor's and Triton's caches emptied (fresh cache
+        # directories and in-memory caches cleared, as a restarted process
+        # finds them): only the cache's entries can spare the compiles
+        from torch._inductor import utils as inductor_utils
+
+        fresh = getattr(inductor_utils, "fresh_cache", None) or inductor_utils.fresh_inductor_cache
+        t0 = time.perf_counter()
+        with fresh():
+            second = FleetEngine(ModelRegistry([expt_dir]), buckets=FLEET_BUCKETS,
+                                 max_resident_models=len(FLEET_KINDS), replicas=2,
+                                 aot_cache=open_cache(cache_dir),
+                                 max_batch=FLEET_BUCKETS[-1], backend="auto", device="cuda")
+            try:
+                for model_id in FLEET_KINDS:
+                    t1 = time.perf_counter()
+                    again = second.predict(x, model=model_id, timeout=600)
+                    page_s = time.perf_counter() - t1
+                    hub = second.hub
+                    compiles = hub.counter("compiles_total", model_id)
+                    hits = hub.counter("aot_cache_hit_total", model_id)
+                    same = bool(np.array_equal(again, served[model_id][0]))
+                    log(f"fleet warm rebuild {model_id}: inductor compiles {int(compiles)}, aot "
+                        f"cache hits {int(hits)}, compile seconds "
+                        f"{hub.counter('compile_seconds_total', model_id):.2f}, first request "
+                        f"{page_s:.2f} s (cold: {page_in[model_id]:.2f} s); logits bit for bit "
+                        f"equal to the first fleet's: {same}")
+                    if compiles != 0 or hits != len(FLEET_BUCKETS) or not same:
+                        raise AssertionError(f"warm rebuild of {model_id} was not compile-free "
+                                             "or served other logits")
+            finally:
+                second.close()
+        log(f"fleet warm rebuild: {time.perf_counter() - t0:.1f} s")
+    from torch._inductor.async_compile import shutdown_compile_workers
+
+    shutdown_compile_workers()
+    log(f"fleet phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "sweep": sweep, "capacity": capacity}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -2330,12 +2696,12 @@ def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
                 ["--device", "cuda", "--config-name=imagenet_imp", *COMPILE_TRAIN_OVERRIDES,
                  f"experiment_params.base_dir={base}/deit"])
             torch.cuda.synchronize()
+            time.sleep(PROFILE_TAIL_S)
         wall = time.perf_counter() - t0
         launches = {c.__name__: c.launches for c in launch_counters}
         # ---- end of the main path
-        device_launches = {name: sum(ev.count for ev in prof.key_averages()
-                                     if name in ev.key
-                                     and ev.device_type == torch.autograd.DeviceType.CUDA)
+        events = _device_events(prof)
+        device_launches = {name: sum(1 for _, _, ev in events if name in ev)
                            for name in KERNEL_NAMES}
         del prof
         skips = counters["inductor"]["cudagraph_skips"] - skips_before
@@ -2537,13 +2903,8 @@ def _u8_hash(images) -> "torch.Tensor":
 def _busy_ms(prof) -> float:
     """Device busy time of a profiled window: the union of its kernels'
     intervals (both streams; copies and fills left out)."""
-    import torch
-
-    spans = []
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and "Memcpy" not in e.name and "Memset" not in e.name):
-            spans.append((e.time_range.start, e.time_range.end))
+    spans = [(start, end) for start, end, name in _device_events(prof)
+             if "Memcpy" not in name and "Memset" not in name]
     busy, last = 0.0, float("-inf")
     for start, end in sorted(spans):
         if end > last:
@@ -2612,9 +2973,10 @@ class _FeedRecorder(_Recorder):
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 with mock.patch.object(DeviceTransfer, "copy", timed_copy), profile(
-                        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        activities=[ProfilerActivity.CUDA]) as prof:
                     row = super().train_epoch()
                     torch.cuda.synchronize()
+                    time.sleep(PROFILE_TAIL_S)
                 recorder.epochs.append({
                     **row, "busy_ms": _busy_ms(prof),
                     "h2d_ms": sum(a.elapsed_time(b) for a, b, _ in copies),
@@ -2894,8 +3256,9 @@ def phase_imagenet(card: str) -> dict:
 FOLDER_RATE_WORKERS = (1, 8, 16)
 FOLDER_RATE_BATCH = 64              # each batch is one worker's: 3 per worker a reading
 FOLDER_RESUME_BATCH = 64            # the resume trio's batch (its checks are exact)
-FOLDER_MODEL_STEPS = 2                # a level's steps for VGG and DenseNet
+FOLDER_MODEL_STEPS = 1                # a level's steps for VGG and DenseNet
 FOLDER_MODEL_BATCHES = (256, 128, 64)
+FOLDER_ER_STEPS = 2                   # imagenet_er_balanced's steps (its checks: density, losses)
 FOLDER_MODEL_PROBE = (32, 64)
 FOLDER_MODELS = ("mp_vgg16", "mp_densenet121")
 
@@ -2935,13 +3298,12 @@ def _folder_rates(train_dir: Path, card: str) -> None:
     loader's worker processes, collate, pinning) by worker count, after
     the first batch, and the workers' start-up (the time to that first
     batch: forking the workers, then one batch's decode by one of them),
-    forked as shipped; and the start-up of 2 workers forked and started by
-    forkserver (which imports torch anew in each)."""
+    forked as shipped."""
     from turboprune_tpu_torch.data.imagenet import ImageFolderLoader
 
-    def reading(workers, n, ctx="fork"):
+    def reading(workers, n):
         loader = ImageFolderLoader(str(train_dir), FOLDER_RATE_BATCH, True,
-                                   num_workers=workers, seed=0, device="cuda", mp_context=ctx)
+                                   num_workers=workers, seed=0, device="cuda")
         t0 = time.perf_counter()
         tasks, count = loader.raw_batches(n)
         first = None
@@ -2958,11 +3320,9 @@ def _folder_rates(train_dir: Path, card: str) -> None:
         first, rate, count = reading(workers, max(4, 3 * workers))
         out.append(f"{workers} worker(s): {rate:.0f} img/s after the first of {count} batches "
                    f"(first batch after {first:.2f} s)")
-    starts = [f"{ctx} {reading(2, 1, ctx)[0]:.2f} s" for ctx in ("fork", "forkserver")]
     log(f"imagenet_folder host decode rate at 224 (batches of {FOLDER_RATE_BATCH}: Pillow "
         "decode, RandomResizedCrop, flip, collate, pin): " + "; ".join(out)
-        + f"; {os.cpu_count()} cores; 2 workers' first batch (start-up): " + ", ".join(starts)
-        + f" on {card}")
+        + f"; {os.cpu_count()} cores on {card}")
 
 
 def _folder_batch_check(train_dir: Path, batch: int) -> None:
@@ -2975,7 +3335,9 @@ def _folder_batch_check(train_dir: Path, batch: int) -> None:
     from turboprune_tpu_torch.data.index_shuffle import shuffled_positions
     from turboprune_tpu_torch.data.pipeline import DeviceTransfer
 
-    loader = ImageFolderLoader(str(train_dir), batch, True, num_workers=16, seed=0, device="cuda")
+    # The workers decide who decodes which batch, not what it holds: 4 of
+    # them start faster than the shipped 16.
+    loader = ImageFolderLoader(str(train_dir), batch, True, num_workers=4, seed=0, device="cuda")
     n = len(loader.source)
     positions = np.arange(batch)
     keys = shuffled_positions(positions, n, 0) % n
@@ -3215,7 +3577,7 @@ def phase_imagenet_folder(card: str, imagenet: dict) -> dict:
         for c in counters:
             c.launches = 0
         rc, expt, wall = _run_config("imagenet_er_balanced", _folder_overrides(
-            data, batch, f"{base}/er", steps=4))
+            data, batch, f"{base}/er", steps=FOLDER_ER_STEPS))
         from turboprune_tpu_torch.ops import masking
         from turboprune_tpu_torch.utils import ExperimentCheckpoints
 
@@ -3225,7 +3587,7 @@ def phase_imagenet_folder(card: str, imagenet: dict) -> dict:
         finite = all(math.isfinite(float(r[k])) for r in rows for k in ("train_loss", "test_loss"))
         launches = {c.__name__: c.launches for c in counters}
         log(f"imagenet_folder er_balanced: run_experiment_torch main "
-            f"--config-name=imagenet_er_balanced -> {rc} in {wall:.1f} s (4 steps at batch "
+            f"--config-name=imagenet_er_balanced -> {rc} in {wall:.1f} s ({FOLDER_ER_STEPS} steps at batch "
             f"{batch}); density {density:.4f} (target 0.1, Bernoulli masks at the balanced "
             f"allocation); finite losses {finite}; K1/K2/K3 launches {launches}")
         if rc or not finite or abs(density - 0.1) > 0.005 or any(launches.values()):
@@ -4118,6 +4480,7 @@ def main() -> int:
     timing = timed("kernels", phase_kernels)
     bwd_timing = timed("backward_kernels", phase_backward_kernels)
     slice_out = timed("slice", phase_slice)
+    fleet_out = timed("fleet", phase_fleet, card)
     train_out = timed("train", phase_train)
     resnet_out = timed("resnet", phase_resnet)
     timed("resume", phase_resume)
@@ -4131,18 +4494,21 @@ def main() -> int:
         + json.dumps(seconds))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_flash_ms")
-    # Launches on the main paths: K1 in every forward, served, trained,
-    # trained in cycles, trained with gathered N:M layers, warm-started from
-    # a timm checkpoint and trained compiled; K2/K3 in every training
-    # backward. The wrappers count the eager paths; the profiler counts the
-    # compiled one, whose CUDA-graph replays run no Python.
+    # Launches on the main paths: K1 in every forward, served (the build's
+    # warm-up and capture by the wrapper, the replayed requests by the
+    # profiler), served by the fleet (its builds), trained, trained in
+    # cycles, trained with gathered N:M layers, warm-started from a timm
+    # checkpoint and trained compiled; K2/K3 in every training backward.
+    # The wrappers count the eager paths; the profiler counts the compiled
+    # ones, whose CUDA-graph replays run no Python.
     compiled = dict(zip(("flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda"),
                         (compile_out["device_launches"][k] for k in KERNEL_NAMES)))
     trained = {k: train_out["launches"][k] + cyclic_out["launches"][k] + compiled[k]
                + sparse_out["launches"][k] + pretrained_out["launches"][k]
                for k in train_out["launches"]}
     rows = [
-        {**K1, "launches": slice_out["launches"] + trained["flash_fwd_cuda"],
+        {**K1, "launches": slice_out["launches"] + fleet_out["launches"]
+         + trained["flash_fwd_cuda"],
          **{k: timing[k] for k in keys}},
         {**K2, "launches": trained["flash_bwd_dq_cuda"],
          **{k: bwd_timing["dq"][k] for k in keys}},

@@ -5,6 +5,8 @@
 Usage:
     python run_server_torch.py --expt-dir experiments/<dir> [serve.port=8080 ...]
     python run_server_torch.py --device cpu --expt-dir experiments/<dir>
+    python run_server_torch.py --config-name serve serve=fleet \
+        "serve.fleet.expt_dirs=[experiments/<dir>]"   # every level, one process
 
 The serve group composes Hydra-style from conf/serve/ (see conf/serve.yaml);
 the model architecture and input geometry come from the experiment dir's own
@@ -14,10 +16,13 @@ CUDA unless --device cpu is given; without CUDA, --device cuda fails instead
 of falling back to the CPU.
 
 Endpoints:
-    POST /predict   {"instances": [[H][W][C] floats, ...]}
+    POST /predict   {"instances": [[H][W][C] floats, ...], "model": "level_3"}
+                    ("model" routes within a fleet; omit for the default)
     GET  /healthz   checkpoint level/density, buckets, queue depth
+                    (fleet: one row per registered model)
     GET  /metrics   Prometheus text (latency histogram, throughput,
-                    queue depth, bucket first/warm runs)
+                    queue depth, compile/AOT-cache hit/miss; fleet series
+                    are labelled by model id)
 
 SIGTERM triggers a graceful shutdown: the listener stops, already-accepted
 requests are answered for up to serve.drain_timeout_s, then the process
@@ -69,15 +74,30 @@ def main(argv=None) -> int:
     cfg = compose(args.config_name, args.overrides, args.config_path)
     server = build_server(cfg, expt_dir=args.expt_dir, device=args.device)
     host, port = server.server_address[:2]
-    info = server.engine.info()
-    print(
-        f"serving {info['source']} on {info['device']}\n"
-        f"  level={info['level']} density={info['density']} "
-        f"buckets={info['buckets']} warmed={info['warmed_buckets']}\n"
-        f"  POST http://{host}:{port}/predict   "
-        f"GET /healthz   GET /metrics",
-        flush=True,
-    )
+    if server.fleet is not None:
+        info = server.fleet.info()
+        models = ", ".join(sorted(info["models"]))
+        print(
+            f"serving fleet of {len(info['models'])} models on {args.device} "
+            f"(default={info['default_model']}, "
+            f"resident<={info['max_resident_models']})\n"
+            f"  models: {models}\n"
+            f"  POST http://{host}:{port}/predict "
+            f'{{"instances": ..., "model": "<id>"}}   '
+            f"GET /healthz   GET /metrics",
+            flush=True,
+        )
+    else:
+        info = server.engine.info()
+        print(
+            f"serving {info['source']} on {info['device']}\n"
+            f"  level={info['level']} density={info['density']} "
+            f"backend={info['backend']} buckets={info['buckets']} "
+            f"compiled={info['compiled_buckets']}\n"
+            f"  POST http://{host}:{port}/predict   "
+            f"GET /healthz   GET /metrics",
+            flush=True,
+        )
 
     def _on_sigterm(signum, frame):
         # shutdown() handshakes with the serve_forever loop running on THIS

@@ -27,7 +27,6 @@ from turboprune_tpu.ops import masking as jax_masking
 from torch_port_fixtures import one_torch_thread, seeded_params  # noqa: F401 (autouse fixture)
 from turboprune_tpu_torch import bridge
 from turboprune_tpu_torch.config.compose import compose
-from turboprune_tpu_torch.config.schema import ConfigError
 from turboprune_tpu_torch.ops.flash import flash_fwd_cuda
 from turboprune_tpu_torch.serve import InferenceEngine, ServeMetrics, build_server
 from turboprune_tpu_torch.utils import ExperimentCheckpoints, save_config
@@ -100,11 +99,11 @@ def test_bucket_padding_never_changes_valid_rows(engine):
 
 
 def test_warmup_ran_every_bucket_once(engine):
-    assert engine.warmed_buckets == BUCKETS
-    assert engine.metrics.counter("bucket_first_runs_total") == len(BUCKETS)
+    assert engine.compiled_buckets == BUCKETS
+    assert engine.metrics.counter("compile_cache_misses_total") == len(BUCKETS)
     engine.predict(_images(2, seed=3))
-    assert engine.metrics.counter("bucket_first_runs_total") == len(BUCKETS)
-    assert engine.metrics.counter("bucket_warm_runs_total") >= 1
+    assert engine.metrics.counter("compile_cache_misses_total") == len(BUCKETS)
+    assert engine.metrics.counter("compile_cache_hits_total") >= 1
 
 
 def _post(url, payload):
@@ -142,7 +141,7 @@ def test_http_round_trip_returns_what_the_engine_returns(expt, engine):
         )[0] == 404
         with urllib.request.urlopen(f"{base}/healthz", timeout=30) as resp:
             health = json.loads(resp.read())
-        assert health["device"] == "cpu" and health["warmed_buckets"] == [1, 4, 8]
+        assert health["device"] == "cpu" and health["compiled_buckets"] == [1, 4, 8]
         with urllib.request.urlopen(f"{base}/metrics", timeout=30) as resp:
             text = resp.read().decode()
         assert "turboprune_serve_requests_total" in text
@@ -163,18 +162,6 @@ def test_role_checkpoint_is_served_by_role(expt):
     assert eng.level is None and eng.density == 1.0
     assert eng.source.endswith("model_init")
     assert eng.predict(_images(1, seed=6)).shape == (1, 10)
-
-
-def test_unported_paths_raise(expt):
-    fleet = compose("serve", ["serve=fleet"])
-    with pytest.raises(ConfigError, match="fleet") as refused:
-        build_server(fleet, expt_dir=str(expt["dir"]), device="cpu")
-    assert "ROADMAP.md queue A, item 16" in str(refused.value)
-    for kw in ({"backend": "compact"}, {"compact": True}, {"backend": "nm"}):
-        with pytest.raises(NotImplementedError, match="sparse-execution slice"):
-            InferenceEngine.from_experiment(expt["dir"], device="cpu", **kw)
-    with pytest.raises(ValueError, match="unknown serving backend"):
-        InferenceEngine.from_experiment(expt["dir"], device="cpu", backend="x")
 
 
 def test_cuda_without_a_card_raises_instead_of_running_on_the_cpu(expt):

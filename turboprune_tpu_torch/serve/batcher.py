@@ -1,4 +1,4 @@
-"""DynamicBatcher — micro-batching queue between callers and the engine
+"""DynamicBatcher — micro-batching queue between callers and the engine(s)
 (a copy of ``turboprune_tpu/serve/batcher.py``: plain Python and numpy).
 
 Requests (each a [k, H, W, C] float array, k >= 1) land on a BOUNDED queue
@@ -8,18 +8,24 @@ drains it: a batch opens when the first request is picked up and flushes
 when either ``max_batch`` rows are waiting or ``max_wait_ms`` has elapsed
 since the batch opened — the classic deadline/size dynamic-batching policy.
 The concatenated rows go through ``engine.predict`` (which pads to the
-warmed bucket) and each caller's Future receives exactly its own rows
+compiled bucket) and each caller's Future receives exactly its own rows
 back.
 
-The JAX package's replica pool (micro-batches round-robin over several
-engines) serves the fleet and is not ported: the flush runs inline in the
-worker thread.
+Data-parallel replicas: construct with a LIST of engines (one per device)
+and/or ``replicas=K`` — flushed micro-batches round-robin across the
+engines on a K-thread pool, so one collector feeds K concurrent forwards.
+On a host with one device the list is a single engine shared by K threads
+(the engine serialises each bucket's replay behind the bucket's lock, so
+two lanes overlap the host copies of one batch with the replay of
+another).
+With ``replicas=1`` (the default) the flush stays inline in the worker
+thread — the exact pre-fleet behavior.
 
 Graceful shutdown: ``drain(deadline_s)`` stops admitting work (new submits
 are rejected like a full queue), waits until every already-accepted request
 has been answered or the deadline passes, then closes. SIGTERM handling in
-run_server_torch.py goes through this, so a rolling restart answers its
-in-flight requests instead of dropping them.
+run_server_torch.py goes through this, so a rolling restart answers its in-flight
+requests instead of dropping them.
 
 Latency recorded per request is submit -> result (queue wait + batching
 wait + padded forward), i.e. what a caller actually experiences.
@@ -30,7 +36,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -58,10 +64,27 @@ class DynamicBatcher:
         max_wait_ms: float = 5.0,
         queue_depth: int = 256,
         metrics=None,
+        replicas: int = 1,
     ):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
-        self.engine = engine
+        if replicas < 1:
+            raise ValueError("replicas must be >= 1")
+        engines = list(engine) if isinstance(engine, (list, tuple)) else [engine]
+        if not engines:
+            raise ValueError("need at least one engine")
+        self.engine = engines[0]  # primary (shape validation, info)
+        self._engines = engines
+        self._workers = max(int(replicas), len(engines))
+        self._pool = (
+            ThreadPoolExecutor(
+                max_workers=self._workers,
+                thread_name_prefix="turboprune-replica",
+            )
+            if self._workers > 1
+            else None
+        )
+        self._rr = 0  # round-robin cursor over engines (worker thread only)
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
         self.metrics = metrics
@@ -124,10 +147,33 @@ class DynamicBatcher:
                 except queue.Empty:
                     break
                 self._finish(req, error=RuntimeError("batcher closed"))
+        if self._pool is not None:
+            # In-flight replica flushes resolve their own futures; wait so
+            # close() returning means no thread still touches the engines.
+            # NEVER rebind _pool to None: the worker reads it after its
+            # None-check, and close() racing that window (join timed out)
+            # would hand it a vanished attribute. shutdown() is idempotent.
+            self._pool.shutdown(wait=True)
 
     @property
     def queue_depth(self) -> int:
         return self._queue.qsize()
+
+    def bucket_sizes(self) -> list[int]:
+        """Sorted union of the padding buckets across every replica engine
+        — the executable set this batcher can route into (what /healthz
+        reports and the exec manifest must cover). getattr-tolerant so a
+        bare-callable test double (no ``buckets``) contributes nothing."""
+        out: set = set()
+        for eng in self._engines:
+            out.update(int(b) for b in getattr(eng, "buckets", ()))
+        return sorted(out)
+
+    @property
+    def outstanding(self) -> int:
+        """Accepted-but-unanswered requests (queued + mid-flush)."""
+        with self._outstanding_lock:
+            return self._outstanding
 
     # ------------------------------------------------------------- clients
     def submit(self, images: np.ndarray) -> Future:
@@ -199,7 +245,12 @@ class DynamicBatcher:
                 rows += nxt.images.shape[0]
             if self.metrics:
                 self.metrics.set_gauge("queue_depth", self._queue.qsize())
-            self._flush(batch, rows)
+            if self._pool is not None:
+                eng = self._engines[self._rr % len(self._engines)]
+                self._rr += 1
+                self._pool.submit(self._flush, batch, rows, eng)
+            else:
+                self._flush(batch, rows, self.engine)
 
     def _finish(self, req: _Request, result=None, error=None) -> None:
         if error is not None:
@@ -209,14 +260,14 @@ class DynamicBatcher:
         with self._outstanding_lock:
             self._outstanding -= 1
 
-    def _flush(self, batch: list[_Request], rows: int) -> None:
+    def _flush(self, batch: list[_Request], rows: int, engine) -> None:
         images = (
             batch[0].images
             if len(batch) == 1
             else np.concatenate([r.images for r in batch])
         )
         try:
-            logits = self.engine.predict(images)
+            logits = engine.predict(images)
         except Exception as e:  # surface to every caller, keep serving
             if self.metrics:
                 self.metrics.inc("errors_total", len(batch))

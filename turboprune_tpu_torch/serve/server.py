@@ -1,22 +1,26 @@
-"""Stdlib HTTP front-end for the inference engine (port of
-``turboprune_tpu/serve/server.py``, single-model serving).
+"""Stdlib HTTP front-end for the inference engine, single-model or fleet
+(port of ``turboprune_tpu/serve/server.py``).
 
 Endpoints:
-  POST /predict   {"instances": [[H][W][C] floats, ...]}
-                  (one image or a [n, H, W, C] nested list)
+  POST /predict   {"instances": [[H][W][C] floats, ...], "model": "level_3"}
+                  (one image or a [n, H, W, C] nested list; "model" is
+                  optional and only meaningful on a fleet server — it
+                  routes to a registry id, default = configured route)
                   -> {"logits": ..., "classes": ..., "model_level": ...,
-                      "density": ...}
-  GET  /healthz   engine/checkpoint info + queue depth (200 = ready)
-  GET  /metrics   Prometheus text exposition (serve/metrics.py)
+                      "density": ...} (+ "model", "backend" on a fleet)
+  GET  /healthz   engine/checkpoint info + queue depth (200 = ready);
+                  fleet servers report one row per registered model
+  GET  /metrics   Prometheus text exposition (serve/metrics.py); fleet
+                  servers render every per-model series through the hub
 
 ThreadingHTTPServer gives one thread per connection; all of them funnel
-into the shared DynamicBatcher, which is where concurrency turns into
+into the shared DynamicBatcher(s), which is where concurrency turns into
 batched device forwards. Backpressure surfaces as HTTP 503 (bounded queue
-full). A request naming a "model" is a 404: routing between models is the
-fleet, which is not ported yet (a ``serve.fleet`` config raises).
+full). Unknown model ids are HTTP 404 with the list of known ids, and so
+is a "model" field sent to a single-model server.
 
 Graceful shutdown: ``graceful_shutdown()`` stops accepting connections,
-then DRAINS the batcher — every accepted request is answered within the
+then DRAINS the batcher(s) — every accepted request is answered within the
 configured deadline — before the socket closes. run_server_torch.py wires
 this to SIGTERM.
 """
@@ -34,14 +38,8 @@ import numpy as np
 from ..config.schema import ConfigError
 from .batcher import DynamicBatcher, QueueFullError
 from .engine import InferenceEngine
+from .fleet.registry import UnknownModelError
 from .metrics import ServeMetrics
-
-
-class UnknownModelError(KeyError):
-    """The request routed to a model this server does not host (HTTP 404)."""
-
-    def __str__(self) -> str:  # KeyError would repr-quote the message
-        return str(self.args[0]) if self.args else ""
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -137,14 +135,15 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class InferenceServer(ThreadingHTTPServer):
-    """HTTP server owning one engine and its batcher."""
+    """HTTP server owning either one engine+batcher or a FleetEngine."""
 
     daemon_threads = True
 
     def __init__(
         self,
-        engine: InferenceEngine,
+        engine: Optional[InferenceEngine] = None,
         *,
+        fleet=None,
         host: str = "127.0.0.1",
         port: int = 8000,
         max_batch: int = 128,
@@ -154,24 +153,33 @@ class InferenceServer(ThreadingHTTPServer):
         drain_timeout_s: float = 10.0,
         metrics: Optional[ServeMetrics] = None,
     ):
+        if (engine is None) == (fleet is None):
+            raise ValueError("pass exactly one of engine= or fleet=")
         self.engine = engine
+        self.fleet = fleet
         self.request_timeout_s = float(request_timeout_s)
         self.drain_timeout_s = float(drain_timeout_s)
-        self.metrics = metrics or engine.metrics or ServeMetrics()
-        self.batcher = DynamicBatcher(
-            engine,
-            max_batch=max_batch,
-            max_wait_ms=max_wait_ms,
-            queue_depth=queue_depth,
-            metrics=self.metrics,
-        ).start()
+        if fleet is not None:
+            # Per-model batchers live inside the fleet; the hub renders
+            # every per-model series as one exposition.
+            self.metrics = fleet.hub
+            self.batcher = None
+        else:
+            self.metrics = metrics or engine.metrics or ServeMetrics()
+            self.batcher = DynamicBatcher(
+                engine,
+                max_batch=max_batch,
+                max_wait_ms=max_wait_ms,
+                queue_depth=queue_depth,
+                metrics=self.metrics,
+            ).start()
         self._thread: Optional[threading.Thread] = None
         self._closed = False
         self._close_lock = threading.Lock()
         try:
             super().__init__((host, port), _Handler)
         except OSError:
-            self.batcher.close()  # the socket failed: stop the worker too
+            self._close_serving()  # the socket failed: stop the workers too
             raise
 
     @property
@@ -180,11 +188,19 @@ class InferenceServer(ThreadingHTTPServer):
 
     def route(self, arr: np.ndarray, model: str = ""):
         """Submit one request; returns (future, response-metadata)."""
+        if self.fleet is not None:
+            future, resident = self.fleet.submit(arr, model=model)
+            eng = resident.engine
+            return future, {
+                "model": resident.spec.model_id,
+                "model_level": eng.level,
+                "backend": eng.backend,
+                "density": round(float(eng.density), 6),
+            }
         if model:
             raise UnknownModelError(
                 f"this server hosts a single model (level "
-                f"{self.engine.level}); 'model' routing needs serve.fleet, "
-                "which turboprune_tpu_torch does not serve yet"
+                f"{self.engine.level}); 'model' routing needs serve.fleet"
             )
         return self.batcher.submit(arr), {
             "model_level": self.engine.level,
@@ -192,10 +208,14 @@ class InferenceServer(ThreadingHTTPServer):
         }
 
     def health(self) -> dict:
+        if self.fleet is not None:
+            return {"status": "ok", **self.fleet.info()}
         return {
             "status": "ok",
             "queue_depth": self.batcher.queue_depth,
             **self.engine.info(),
+            # Union across replicas: the bucket surface this server serves.
+            "buckets": self.batcher.bucket_sizes(),
         }
 
     def start_background(self) -> "InferenceServer":
@@ -219,7 +239,10 @@ class InferenceServer(ThreadingHTTPServer):
         self.shutdown()  # stop serve_forever wherever it is running
         if self._thread is not None:
             self._thread.join(5.0)
-        report = self.batcher.drain(deadline_s=timeout)
+        if self.fleet is not None:
+            report = self.fleet.drain(deadline_s=timeout)
+        else:
+            report = self.batcher.drain(deadline_s=timeout)
         self._server_close_once()
         return report
 
@@ -236,8 +259,14 @@ class InferenceServer(ThreadingHTTPServer):
         if self._thread is not None and self._thread.is_alive():
             self.shutdown()
             self._thread.join(5.0)
-        self.batcher.close()
+        self._close_serving()
         self._server_close_once()
+
+    def _close_serving(self) -> None:
+        if self.fleet is not None:
+            self.fleet.close()
+        else:
+            self.batcher.close()
 
 
 def build_server(
@@ -247,8 +276,10 @@ def build_server(
     device: str = "cuda",
 ) -> InferenceServer:
     """Compose an InferenceServer from a MainConfig with the serve group
-    (conf/serve.yaml). The engine runs on ``device`` (CUDA unless the
-    caller asks for the CPU)."""
+    (conf/serve.yaml: ``defaults: [serve: default]``). A populated
+    ``serve.fleet`` builds the multi-model fleet server; otherwise the
+    single-checkpoint server. The engines run on ``device`` (CUDA unless
+    the caller asks for the CPU)."""
     sc = cfg.serve
     if sc is None:
         raise ConfigError(
@@ -256,10 +287,38 @@ def build_server(
             "add '+serve=default'"
         )
     if sc.fleet is not None:
-        raise ConfigError(
-            "serve.fleet: fleet serving is not yet ported to "
-            "turboprune_tpu_torch (ROADMAP.md queue A, item 16) — serve one "
-            "experiment dir with serve=default"
+        from .fleet import FleetEngine, ModelRegistry, open_cache
+
+        fc = sc.fleet
+        dirs = [str(d) for d in fc.expt_dirs] or (
+            [expt_dir or sc.expt_dir] if (expt_dir or sc.expt_dir) else []
+        )
+        if not dirs:
+            raise ConfigError(
+                "fleet serving needs experiment dirs: set "
+                "serve.fleet.expt_dirs (or serve.expt_dir / --expt-dir)"
+            )
+        fleet = FleetEngine(
+            ModelRegistry(dirs),
+            buckets=tuple(sc.batch_buckets),
+            max_resident_models=fc.max_resident_models,
+            replicas=fc.replicas,
+            aot_cache=open_cache(fc.aot_cache_dir),
+            max_batch=sc.max_batch,
+            max_wait_ms=sc.max_wait_ms,
+            queue_depth=sc.queue_depth,
+            default_route=fc.default_route,
+            pinned_model=fc.pinned_model,
+            backend=fc.backend,
+            warmup=sc.warmup,
+            device=device,
+        )
+        return InferenceServer(
+            fleet=fleet,
+            host=sc.host,
+            port=sc.port,
+            request_timeout_s=sc.request_timeout_s,
+            drain_timeout_s=sc.drain_timeout_s,
         )
     target = expt_dir or sc.expt_dir
     if not target:
