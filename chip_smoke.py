@@ -158,6 +158,24 @@ result line):
             the same accuracy); K1 at the CIFAR shape (5 valid keys of 128)
             against its plain version, timed; peak memory and the
             warm-started step's time.
+13. dp      data parallelism (runs last): (a) a world of 2 processes on the
+            one card over gloo (CUDA tensors; NCCL refuses two ranks on one
+            device), this script's subprocesses started with torchrun's
+            variables (``chip_smoke.py --dp-rank DIR``), each running
+            run_experiment_torch's main on the trained DeiT cell (IMP,
+            ladder [1.0, 0.8], global batch 256, 2 steps a level) and on
+            cifar10_imp (global batch 512): driver.py's exact cross-rank
+            check at level 1, K1/K2/K3 per rank by the wrappers and by the
+            profiler between _sleep markers, the first step's global loss
+            and BatchNorm statistics against one process's first step at
+            the global batch (within a bf16 ulp), level 1's masks against
+            this process's pruning of the world's level-0 weights (bit for
+            bit), the step's time a rank and its gradient all-reduce's
+            (CUDA events) beside one process's; whether CUDA graphs keep
+            the BatchNorm's functional all-reduce over gloo (a probe); (b)
+            a world of one over NCCL through torchrun on
+            run_experiment_torch.py (cifar10_imp, one level): the rank's
+            binding to cuda:0, NCCL's init, one experiment dir.
 
 Prints the card (nvidia-smi name and power limit), each phase's seconds, a
 ``kernels`` JSON line,
@@ -185,6 +203,7 @@ import numpy as np
 
 # H100 SXM data-sheet peaks (NVIDIA), dense, at the 700 W limit. fp32 is the
 # CUDA cores' rate (no TF32); 16-bit is the tensor cores'.
+T_IMPORT = time.perf_counter()  # the dp phase's ranks report their start-up from here
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 
@@ -4455,6 +4474,468 @@ def phase_pretrained(train_out: dict, card: str) -> dict:
     return {"launches": total}
 
 
+# ---------------------------------------------------------------- phase 13
+# Data parallelism. (a) A world of DP_WORLD processes on the one
+# card over gloo, which carries CUDA tensors (NCCL refuses two ranks on one
+# device): the ranks are this script's subprocesses, started with the
+# launcher's variables (RANK, WORLD_SIZE, LOCAL_RANK=0, MASTER_ADDR,
+# MASTER_PORT), each running run_experiment_torch's main with
+# --dist-backend gloo on both configurations below, then timing steps on
+# the run's harness; each is checked here afterwards against one process
+# of the same configuration (its first step, at the global batch, and its
+# step time) and against this process's pruning of the world's level-0
+# weights. (b) A world of one over NCCL through torchrun on
+# run_experiment_torch.py. The card cannot show scaling across GPUs: both
+# ranks share its SMs.
+DP_WORLD = 2
+DP_STEPS = 2                        # train steps a level
+DP_STEP_REPS = 5                    # timed steps after a run
+DP_TIMEOUT_S = 240
+DP_CONFIGS = {
+    # The trained DeiT cell: IMP, ladder [1.0, 0.8], global batch 256 (128 a
+    # rank), one eval batch a level.
+    "deit": ("imagenet_imp", TRAIN_OVERRIDES + [
+        "dataset_params.synthetic_num_train=512",
+        "dataset_params.synthetic_num_test=256",
+        f"experiment_params.max_steps_per_epoch={DP_STEPS}"]),
+    # cifar10_imp as shipped (bf16, global batch 512): the global-batch
+    # BatchNorm; two eval batches a level.
+    "resnet": ("cifar10_imp", [
+        "dataset_params.dataloader_type=synthetic",
+        "dataset_params.synthetic_num_train=2048",
+        "dataset_params.synthetic_num_test=1024",
+        "experiment_params.epochs_per_level=1",
+        f"experiment_params.max_steps_per_epoch={DP_STEPS}",
+        "pruning_params.target_sparsity=0.2"]),
+}
+# Launches a rank makes in one run: 12 blocks x (2 levels x (steps + eval
+# batches)) forward, 12 x 2 x steps backward; none for the ResNet.
+DP_LAUNCHES = {
+    "deit": {"flash_fwd_cuda": DEPTH * 2 * (DP_STEPS + 1),
+             "flash_bwd_dq_cuda": DEPTH * 2 * DP_STEPS,
+             "flash_bwd_dkv_cuda": DEPTH * 2 * DP_STEPS},
+    "resnet": dict.fromkeys(("flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda"), 0),
+}
+# bf16 limits of the world's first step against one process's: the loss,
+# and each BatchNorm running statistic after it, within one bf16 ulp (2^-8)
+# of the largest magnitude of the tensor. Both sides compute the same
+# global-batch statistics in fp32; they differ in the order of the fp32
+# sums and where the library's kernels for 128 / 256 rows round a bf16
+# output the other way.
+DP_BF16_REL = 2.0 ** -8
+DP_NCCL_OVERRIDES = [
+    "dataset_params.dataloader_type=synthetic",
+    "dataset_params.synthetic_num_train=2048",
+    "dataset_params.synthetic_num_test=1024",
+    "experiment_params.epochs_per_level=1",
+    f"experiment_params.max_steps_per_epoch={DP_STEPS}",
+    "pruning_params.target_sparsity=0.0",          # one level
+]
+
+
+def _dp_marked(counted) -> tuple:
+    """One profile of ``counted()`` between ``_sleep`` markers: the device
+    events between the first two of three (None where the profiler saw no
+    device work or lost a marker: never taken again, since the other ranks
+    would not take theirs again), and what ``counted`` returned."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(MARKER_CYCLES)
+        out = counted()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_TAIL_S)
+    evs = sorted(_device_events(prof))
+    marks = [i for i, ev in enumerate(evs) if MARKER_KERNEL in ev[2]]
+    return (evs[marks[0] + 1:marks[1]] if len(marks) == 3 else None), out
+
+
+def _first_step(harness, rec: dict) -> None:
+    """Wrap ``harness``'s train step so that its first call records, in
+    ``rec``, the global batch's loss and the BatchNorm running statistics
+    after it."""
+    from turboprune_tpu_torch.parallel import all_reduce_sums
+
+    step = harness._train_step
+
+    def first(state, batch):
+        out = step(state, batch)
+        if "loss" not in rec:
+            sums = all_reduce_sums({k: v.detach().clone() for k, v in out.items()}, harness.mesh)
+            rec["loss"] = float(sums["loss_sum"] / sums["count"])
+            rec["stats"] = {k: v.detach().float().cpu().clone()
+                            for k, v in state.model.named_buffers()}
+        return out
+
+    harness._train_step = first
+
+
+def _dp_step_ms(harness) -> tuple:
+    """The median time of a step on ``harness``'s first batch (CUDA events,
+    host work included) and of the gradient all-reduce inside it (None in
+    one process)."""
+    from unittest import mock
+
+    import torch
+
+    from turboprune_tpu_torch.parallel import average_gradients
+    from turboprune_tpu_torch.train import steps as steps_module
+
+    with contextlib.closing(harness.train_batches()) as batches:
+        batch = next(batches)
+    reduce_ms: list = []
+
+    def timed_average(params, mesh):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        average_gradients(params, mesh)
+        b.record()
+        b.synchronize()
+        reduce_ms.append(a.elapsed_time(b))
+
+    with mock.patch.object(steps_module, "average_gradients", timed_average):
+        step_ms = _call_ms(lambda: harness._train_step(harness.state, batch), reps=DP_STEP_REPS,
+                           warmup=2)
+    return step_ms, (statistics.median(reduce_ms) if reduce_ms else None), int(batch[1].shape[0])
+
+
+def _dp_one(name: str, base: str) -> dict:
+    """``name``'s configuration in one process: the first step of a fresh
+    harness (the run's first, on the same batch at the global batch size);
+    the harness is kept for ``_dp_step_ms``."""
+    from turboprune_tpu_torch.config.compose import compose
+    from turboprune_tpu_torch.harness import PruningHarness
+
+    config, overrides = DP_CONFIGS[name]
+    cfg = compose(config, overrides + [f"experiment_params.base_dir={base}"])
+    h = PruningHarness(cfg, ("", f"{base}/one"), device="cuda")
+    rec: dict = {"harness": h}
+    h.setup_level(1)
+    _first_step(h, rec)
+    with contextlib.closing(h.train_batches()) as batches:
+        h._train_step(h.state, next(batches))
+    return rec
+
+
+def _dp_config(name: str, base: str) -> dict:
+    """``name``'s configuration through run_experiment_torch's main in this
+    process's world: the first step's global loss and BatchNorm
+    statistics, the cross-rank checks the driver made, K1/K2/K3 launches by
+    the wrappers and by the profiler, then the step's time and the
+    gradient all-reduce's on the run's harness."""
+    from unittest import mock
+
+    import run_experiment_torch
+    from turboprune_tpu_torch import driver
+    from turboprune_tpu_torch.harness import PruningHarness
+    from turboprune_tpu_torch.ops import flash
+
+    config, overrides = DP_CONFIGS[name]
+    rec: dict = {"checks": 0}
+
+    class Harness(PruningHarness):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            rec["harness"] = self
+
+        def setup_level(self, epochs):
+            super().setup_level(epochs)
+            _first_step(self, rec)
+
+    check = driver.check_state_equality
+
+    def counted_check(*a, **kw):
+        rec["checks"] += 1
+        return check(*a, **kw)
+
+    counters = (flash.flash_fwd_cuda, flash.flash_bwd_dq_cuda, flash.flash_bwd_dkv_cuda)
+    argv = ["--device", "cuda", "--dist-backend", "gloo", f"--config-name={config}", *overrides,
+            f"experiment_params.base_dir={base}"]
+    # ---- the main path, with every count at 0 just before it
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(driver, "PruningHarness", Harness), \
+            mock.patch.object(driver, "check_state_equality", counted_check):
+        events, rc = _dp_marked(lambda: run_experiment_torch.main(argv))
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    # ---- end of the main path
+    profiled = None if events is None else {
+        k: sum(1 for *_, n in events if k in n) for k in KERNEL_NAMES}
+
+    h = rec["harness"]
+    h.setup_level(1)
+    # The card to this world alone while it times: torchrun's run of
+    # phase_dp (b) goes on beside the runs, and its end is signalled.
+    waited = time.perf_counter()
+    while not Path(base).parent.joinpath("quiet").exists():
+        if time.perf_counter() - waited > DP_TIMEOUT_S:
+            raise TimeoutError("phase_dp never signalled a quiet card")
+        time.sleep(0.1)
+    waited = time.perf_counter() - waited
+    step_ms, reduce_ms, rows = _dp_step_ms(h)
+    return {"rc": rc, "wall_s": wall, "waited_s": waited, "loss": rec["loss"],
+            "stats": rec["stats"],
+            "checks": rec["checks"], "launches": launches, "profiled": profiled,
+            "step_ms": step_ms, "reduce_ms": reduce_ms, "rows": rows,
+            "dirs": sorted(p.name for p in Path(base).iterdir())}
+
+
+def _dp_compile_probe() -> dict:
+    """Whether CUDA graphs keep a functional all-reduce (the BatchNorm
+    collective's) over this world's gloo: a tiny function under
+    torch.compile(fullgraph=True) with the cudagraphs backend (the CUDA-graph
+    trees inductor's reduce-overhead mode replays, without inductor's
+    code generation), three calls, against its eager result; what it raised
+    otherwise."""
+    import torch
+    from torch._dynamo.utils import counters
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed import group
+
+    def f(x):
+        return x * funcol.all_reduce(x.sum(0), "sum", group.WORLD)
+
+    x = torch.randn(64, 32, device="cuda")
+    want = f(x)
+    t0 = time.perf_counter()
+    try:
+        g = torch.compile(f, fullgraph=True, backend="cudagraphs")
+        for _ in range(3):
+            torch.compiler.cudagraph_mark_step_begin()
+            got = g(x)
+        torch.cuda.synchronize()
+        out = {"ran": True, "max_abs_err": float((got - want).abs().max()),
+               "cudagraph_skips": sum(counters["inductor"]["cudagraph_skips"].values())
+               if "cudagraph_skips" in counters["inductor"] else 0}
+    except Exception as e:  # the probe's finding, reported: this is what it asks
+        out = {"ran": False, "error": f"{type(e).__name__}: {str(e)[:300]}"}
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+def dp_rank(out_dir: str) -> int:
+    """One rank of the dp phase's world (``chip_smoke.py --dp-rank DIR``,
+    started by ``phase_dp`` with the launcher's variables)."""
+    import torch
+    import torch.distributed as dist
+
+    from turboprune_tpu_torch.parallel import (
+        destroy_distributed,
+        initialize_distributed,
+        process_index,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = initialize_distributed("gloo", "cuda")
+    rank = process_index()
+    out: dict = {"rank": rank, "device": str(device), "join_s": time.perf_counter() - T_IMPORT}
+    try:
+        probe = torch.full((4,), float(rank + 1), device=device)
+        try:
+            dist.all_reduce(probe)
+        except RuntimeError as e:  # this torch's gloo refuses CUDA tensors
+            out["gloo_refused"] = str(e)[:500]
+        else:
+            out["gloo_sum"] = probe.tolist()
+            for name in DP_CONFIGS:
+                res = _dp_config(name, f"{out_dir}/{name}_world")
+                torch.save(res.pop("stats"), f"{out_dir}/{name}_stats_{rank}.pt")
+                out[name] = res
+            out["compile_probe"] = _dp_compile_probe()
+    finally:
+        destroy_distributed()
+    Path(out_dir, f"rank_{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dp_world(base: str, beside=None) -> list:
+    """Start the world's ranks, run ``beside()`` meanwhile, then write the
+    ``quiet`` file the ranks wait for before they time steps, and wait for
+    them (killed at DP_TIMEOUT_S)."""
+    env = {**os.environ, "WORLD_SIZE": str(DP_WORLD), "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank", base],
+                              env={**env, "RANK": str(r)}, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(DP_WORLD)]
+    outs = []
+    try:
+        if beside is not None:
+            beside()
+        Path(base, "quiet").write_text("")
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"dp rank {r} exited {p.returncode}:\n{text[-6000:]}")
+    return [json.loads(Path(base, f"rank_{r}.json").read_text()) for r in range(DP_WORLD)]
+
+
+def phase_dp(card: str) -> dict:
+    launches = dict.fromkeys(("flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda"), 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as base:
+        nccl: dict = {}
+        ones: dict = {}
+
+        def beside():
+            # ---- (b) a world of one over NCCL through torchrun, and the
+            # one-process references' first steps, beside (a)'s runs: the
+            # ranks time their steps only after these end, and this process
+            # times its own after the world's end
+            t1 = time.perf_counter()
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node=1", "run_experiment_torch.py", "--config-name=cifar10_imp",
+                   *DP_NCCL_OVERRIDES, f"experiment_params.base_dir={base}/nccl"]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                    cwd=str(Path(__file__).resolve().parent))
+            try:
+                for name in DP_CONFIGS:
+                    ones[name] = _dp_one(name, f"{base}/{name}_one")
+                nccl["out"], nccl["err"] = proc.communicate(timeout=DP_TIMEOUT_S)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+            nccl["rc"], nccl["s"] = proc.returncode, time.perf_counter() - t1
+
+        # ---- (a) the world of DP_WORLD on this card, over gloo
+        t0 = time.perf_counter()
+        Path(base, "world").mkdir()
+        ranks = _dp_world(f"{base}/world", beside)
+        world_s = time.perf_counter() - t0
+        if "gloo_refused" in ranks[0]:
+            log(f"dp world of {DP_WORLD} over gloo NOT run: this torch's gloo refused a CUDA "
+                f"all-reduce ({ranks[0]['gloo_refused']})")
+        else:
+            log(f"dp world of {DP_WORLD} over gloo on one card: ranks on "
+                f"{[r['device'] for r in ranks]}, a CUDA all-reduce of 1 + 2 gave "
+                f"{ranks[0]['gloo_sum']}; {world_s:.1f} s with start-up (rank 0: joined "
+                f"after {ranks[0]['join_s']:.1f} s; "
+                + ", ".join(f"{n} run {ranks[0][n]['wall_s']:.1f} s, waited "
+                            f"{ranks[0][n]['waited_s']:.1f} s" for n in DP_CONFIGS)
+                + f"; beside it, torchrun and the one-process first steps {nccl['s']:.1f} s)")
+            for name in DP_CONFIGS:
+                t1 = time.perf_counter()
+                launches = _dp_check(name, ranks, f"{base}/world", card, launches, ones.pop(name))
+                log(f"dp {name} checked against one process in {time.perf_counter() - t1:.1f} s")
+            probe = ranks[0]["compile_probe"]
+            log("dp compiled all-reduce probe (dynamo, the cudagraphs backend, gloo, rank 0): "
+                f"{probe}")
+        line = [ln[ln.index("[world]"):] for ln in nccl["out"].splitlines() if "[world]" in ln]
+        dirs = sorted(p.name for p in Path(base, "nccl").iterdir()) if nccl["rc"] == 0 else []
+        log(f"dp torchrun --nproc_per_node=1 (NCCL): rc {nccl['rc']} in {nccl['s']:.1f} s "
+            f"(beside the world's runs); {line}; experiment dirs {dirs}")
+        if (nccl["rc"] != 0 or line != ["[world] 1 process(es) over nccl, rank 0 on cuda:0"]
+                or len(dirs) != 1
+                or not (Path(base, "nccl", dirs[0], "checkpoints", "model_level_0")).exists()):
+            raise AssertionError(f"torchrun over NCCL failed:\n{nccl['out'][-3000:]}\n"
+                                 f"{nccl['err'][-3000:]}")
+    return {"launches": launches}
+
+
+def _dp_check(name: str, ranks: list, base: str, card: str, launches: dict, one: dict) -> dict:
+    """The world's run of ``name`` against one process's first step
+    (``_dp_one``'s ``one``, whose step is timed here, the card quiet); adds
+    the ranks' launches to ``launches``."""
+    import torch
+
+    from turboprune_tpu_torch.ops import masking
+    from turboprune_tpu_torch.pruning import prune_the_model
+    from turboprune_tpu_torch.utils import model_state_dict
+    from turboprune_tpu_torch.utils.checkpoint import restore_model_tree
+
+    one["step_ms"], _, one["rows"] = _dp_step_ms(one.pop("harness"))
+    world = [r[name] for r in ranks]
+    for res in world:
+        for k, v in res["launches"].items():
+            launches[k] += v
+    bad = []
+    for r, res in enumerate(world):
+        if res["rc"] != 0 or len(res["dirs"]) != 1 or res["checks"] != 1:
+            bad.append(f"rank {r}: rc {res['rc']}, dirs {res['dirs']}, checks {res['checks']}")
+        if res["launches"] != DP_LAUNCHES[name]:
+            bad.append(f"rank {r}: launches {res['launches']} != {DP_LAUNCHES[name]}")
+        if res["profiled"] is not None and list(res["profiled"].values()) != list(
+                res["launches"].values()):
+            bad.append(f"rank {r}: profiler counted {res['profiled']}")
+    # The first step: global loss and BatchNorm statistics.
+    loss_err = abs(world[0]["loss"] - one["loss"])
+    if world[0]["loss"] != world[1]["loss"] or loss_err > DP_BF16_REL * abs(one["loss"]):
+        bad.append(f"first-step loss {[w['loss'] for w in world]} vs {one['loss']}")
+    stats = [torch.load(f"{base}/{name}_stats_{r}.pt") for r in range(DP_WORLD)]
+    worst = 0.0
+    for k, want in one["stats"].items():
+        if not all(torch.equal(stats[0][k], s[k]) for s in stats):
+            bad.append(f"{k} differs across ranks")
+        err = float((stats[0][k] - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        worst = max(worst, err)
+    if worst > DP_BF16_REL:
+        bad.append(f"BatchNorm statistics {worst:.3g} of their largest magnitude")
+    # Level 1's masks: every rank's (driver.py's exact check), and one
+    # process's pruning of the world's level-0 weights, bit for bit.
+    (expt,) = Path(base, f"{name}_world").iterdir()
+    level0 = restore_model_tree(expt / "checkpoints" / "model_level_0")
+    level1 = restore_model_tree(expt / "checkpoints" / "model_level_1")
+    cfg_model = _dp_model(name)
+    cfg_model.load_state_dict(model_state_dict(level0))
+    want = prune_the_model("mag", cfg_model, {p: m.cuda() for p, m in level0["masks"].items()}, 0.8)
+    same = all(torch.equal(level1["masks"][p], want[p].cpu()) for p in want)
+    if not same:
+        bad.append("level-1 masks are not one process's pruning of the level-0 weights")
+    n = masking.num_prunable(level1["masks"])
+    log(f"dp {name} world of {DP_WORLD} (gloo, one card) vs one process: rc "
+        f"{[w['rc'] for w in world]}, run {[round(w['wall_s'], 1) for w in world]} s; exact "
+        f"cross-rank checks {[w['checks'] for w in world]}; launches a rank "
+        f"{world[0]['launches']} (profiler {world[0]['profiled']}); first-step loss "
+        f"{world[0]['loss']:.6f} / one process {one['loss']:.6f} (limit {DP_BF16_REL:.4g} "
+        "relative); BatchNorm statistics after it "
+        + (f"{worst:.3g} of their largest magnitude" if one["stats"] else "(none)")
+        + f"; level-1 masks ({n} prunable) = this process's pruning of the world's level-0 "
+        f"weights: {same}")
+    log(f"dp {name} step: world of {DP_WORLD} {world[0]['step_ms']:.3f} / "
+        f"{world[1]['step_ms']:.3f} ms a rank ({world[0]['rows']} rows each), gradient "
+        f"all-reduce {world[0]['reduce_ms']:.3f} / {world[1]['reduce_ms']:.3f} ms of it; one "
+        f"process {one['step_ms']:.3f} ms ({one['rows']} rows) (CUDA events, median of "
+        f"{DP_STEP_REPS}, host work included) on {card}")
+    if bad:
+        raise AssertionError(f"dp {name}: " + "; ".join(bad))
+    return launches
+
+
+def _dp_model(name: str):
+    from turboprune_tpu_torch.config.compose import compose
+    from turboprune_tpu_torch.models import create_model
+
+    config, overrides = DP_CONFIGS[name]
+    cfg = compose(config, overrides)
+    return create_model(cfg.model_params.model_name, num_classes=cfg.dataset_params.num_classes,
+                        dataset_name=cfg.dataset_params.dataset_name,
+                        attention_impl=cfg.model_params.attention_impl,
+                        image_size=cfg.dataset_params.image_size).cuda()
+
+
+
 def main() -> int:
     import torch
 
@@ -4490,6 +4971,7 @@ def main() -> int:
     sparse_out = timed("sparse", phase_sparse, card)
     pretrained_out = timed("pretrained", phase_pretrained, train_out, card)
     compile_out = timed("compile", phase_compile, resnet_out, train_out)
+    dp_out = timed("dp", phase_dp, card)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s on {card}; seconds by phase "
         + json.dumps(seconds))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -4498,13 +4980,16 @@ def main() -> int:
     # warm-up and capture by the wrapper, the replayed requests by the
     # profiler), served by the fleet (its builds), trained, trained in
     # cycles, trained with gathered N:M layers, warm-started from a timm
-    # checkpoint and trained compiled; K2/K3 in every training backward.
+    # checkpoint, trained compiled and trained data-parallel (each rank of
+    # the dp phase's world, and its world of one); K2/K3 in every training
+    # backward.
     # The wrappers count the eager paths; the profiler counts the compiled
     # ones, whose CUDA-graph replays run no Python.
     compiled = dict(zip(("flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda"),
                         (compile_out["device_launches"][k] for k in KERNEL_NAMES)))
     trained = {k: train_out["launches"][k] + cyclic_out["launches"][k] + compiled[k]
                + sparse_out["launches"][k] + pretrained_out["launches"][k]
+               + dp_out["launches"][k]
                for k in train_out["launches"]}
     rows = [
         {**K1, "launches": slice_out["launches"] + fleet_out["launches"]
@@ -4528,4 +5013,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank(sys.argv[2]))
     sys.exit(main())

@@ -109,7 +109,9 @@ def _option(override, refusal):
     "override, refusal",
     [
         _option("experiment_params.profile_dir={tmp}/profile", (NotImplementedError, "ROADMAP")),
-        _option("experiment_params.num_devices=2", (NotImplementedError, "ROADMAP")),
+        # Ported since: more devices than the launched world raise, as
+        # the JAX package's mesh does.
+        _option("experiment_params.num_devices=2", (ValueError, "under-provision")),
         # Ported since: pretrained weights raise only for a missing file, as
         # in the JAX package; schedule-free SGD builds.
         _option("model_params.pretrained_path={tmp}/deit.npz",

@@ -200,8 +200,13 @@ def test_restore_gives_no_epoch_counter_to_a_stream_loader(tmp_path, capsys):
 
 
 def test_grain_in_a_world_of_two_processes_raises(data, monkeypatch):
+    """Sharded since: a world of two splits the global batch, and a batch
+    that does not divide over the world raises."""
+    from turboprune_tpu_torch.data import imagenet
+
     cfg = compose("imagenet_imp", [f"dataset_params.data_root_dir={data}",
-                                   "dataset_params.num_workers=0"])
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 13"):
+                                   "dataset_params.num_workers=0",
+                                   "dataset_params.total_batch_size=5"])
+    monkeypatch.setattr(imagenet, "process_count", lambda: 2)
+    with pytest.raises(ValueError, match="not divisible by the 2 processes"):
         create_loaders(cfg, "cpu")

@@ -1,6 +1,7 @@
 """The port stands alone: no module of turboprune_tpu_torch, nor
 chip_smoke.py, ablate_flash_fwd.py, card_cpu_noise.py, run_server_torch.py,
-run_experiment_torch.py or run_cyclic_training_experiment_torch.py imports JAX, flax, optax, orbax, grain or the JAX package
+run_experiment_torch.py, run_cyclic_training_experiment_torch.py or the data-parallel
+tests' worker (tests/torch_port_dp_worker.py) imports JAX, flax, optax, orbax, grain or the JAX package
 (not even its jax-free modules). Checked on the AST, so a lazy import
 inside a function counts too."""
 
@@ -18,6 +19,7 @@ FILES = sorted((REPO / "turboprune_tpu_torch").rglob("*.py")) + [
     REPO / "run_server_torch.py",
     REPO / "run_experiment_torch.py",
     REPO / "run_cyclic_training_experiment_torch.py",
+    REPO / "tests" / "torch_port_dp_worker.py",
 ]
 
 

@@ -171,3 +171,56 @@ def write_image_folder(root, classes=("a", "b"), per_class=3, sizes=((64, 48),),
         for i in range(per_class):
             (root / cls / f"{i}.jpeg").write_bytes(blobs[c * per_class + i])
     return root
+
+
+def spawn_world(suite: str, root, beside=None, nproc: int = 2, timeout: float = 300.0) -> tuple:
+    """Run ``tests/torch_port_dp_worker.py <suite> <root>`` as a world of
+    ``nproc`` gloo processes on localhost, each joined through the port's
+    ``initialize_distributed`` from torchrun's variables (RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), and ``beside()`` in
+    this process while they run. Returns (each rank's results, read from
+    ``result_<rank>.pt``, and what ``beside`` returned). Every worker has a
+    wall limit: a deadlock fails the test instead of hanging the suite."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    worker = Path(__file__).parent / "torch_port_dp_worker.py"
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTEST_")}
+    env.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE=str(nproc),
+               OMP_NUM_THREADS="1", PYTHONPATH=str(worker.parents[1]))
+    procs = [
+        subprocess.Popen(
+            [sys.executable, str(worker), suite, str(root)],
+            env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+            cwd=str(worker.parents[1]),
+            stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT,
+        )
+        for r in range(nproc)
+    ]
+    outs = []
+    try:
+        made = beside() if beside is not None else None
+        for p in procs:
+            out, _ = p.communicate(timeout=timeout)
+            outs.append(out.decode(errors="replace"))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"world {suite!r} timed out after {timeout} s (deadlock?)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for r, p in enumerate(procs):
+        path = Path(root) / f"result_{r}.pt"
+        assert p.returncode == 0 and path.exists(), (
+            f"rank {r} of world {suite!r} failed (rc={p.returncode})\n{outs[r][-6000:]}")
+        results.append(torch.load(path, weights_only=False))
+    return results, made

@@ -275,15 +275,22 @@ class ExperimentConfig:
     base_dir: str = "./experiments"
     epochs_per_level: int = 150
     training_precision: str = "bfloat16"
+    # Documents that the run expects a launcher (the reference's DDP flag).
+    # The port does not read it: like the JAX package, every run joins
+    # whatever world the launcher made (torchrun's environment; none = one
+    # process) and trains data-parallel across it (parallel/).
     distributed: bool = False
     resume_experiment: bool = False
     resume_experiment_stuff: Optional[ResumeExperimentConfig] = None
     wandb_project_name: str = "TurboPrune_runs"
-    # TPU additions: mesh axes sizes; 0 = use all visible devices on `data`.
+    # Mesh axes sizes, as in the JAX package; 0 = every device of the world
+    # on `data`. In the port one process drives one device, so any other
+    # value must equal the launched world's size (parallel.create_mesh).
     num_devices: int = 0
     # Size of the mesh `model` axis (sequence/tensor parallelism); devices
     # are laid out (data = n/model_parallelism, model). 1 = pure DP, the
-    # reference's only strategy (SURVEY.md §2.3).
+    # reference's only strategy (SURVEY.md §2.3); > 1 is ROADMAP item A13b
+    # in the port.
     model_parallelism: int = 1
     # Cap on train/eval steps per epoch (0 = full epoch) — for smoke tests.
     max_steps_per_epoch: int = 0

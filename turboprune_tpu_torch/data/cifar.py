@@ -117,7 +117,13 @@ class DeviceCifarLoader:
 
     train => shuffle + drop_last + aug {flip, translate, cutout} (flips by
     the altflip unless ``altflip=False``); test => in order, no aug, last
-    partial batch padded with label -1."""
+    partial batch padded with label -1.
+
+    ``batch_scope = "global"``: every process holds the whole dataset and
+    yields the whole global batch; each rank of a data-parallel run keeps
+    its rows (``parallel.shard_batch``)."""
+
+    batch_scope = "global"
 
     def __init__(
         self,

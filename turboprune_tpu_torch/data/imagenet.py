@@ -20,6 +20,17 @@ rebuilds grain's stream itself, bit for bit:
   order, its last batch padded to the full batch with label -1
   (``padding.py``).
 
+In a world of W processes each rank reads its shard, as grain's
+``ShardByJaxProcess(drop_remainder=train)`` cuts it (``shard_span``):
+the records split into W contiguous spans, the remainder going to the
+first spans, or (train) dropped so every span holds ``n // W``. Rank p's
+stream position ``k`` is grain's sampler index ``k * W + p``, which seeds
+the record's Philox key, and reads record ``start + shuffled(k)`` with the
+shuffle over the span's length. A batch holds ``total_batch_size / W``
+records (which must divide). The eval length is the largest span's
+batches on every rank, the shorter spans padded (label -1) with whole
+batches, so the ranks' eval steps line up.
+
 The stream's position is its whole state: ``get_stream_state`` /
 ``set_stream_state`` carry it in a few bytes together with the loader's
 fingerprint (split dir, n, batch, seed), and a blob of another loader
@@ -59,9 +70,9 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from ..parallel.multihost import process_count, process_index
 from .index_shuffle import shuffled_positions
-from .native import process_count
-from .padding import pad_eval_batch
+from .padding import PAD_LABEL, pad_eval_batch
 from .pipeline import stream_batches
 
 DEFAULT_CROP_RATIO = 224 / 256  # reference dataset.py:30
@@ -208,20 +219,37 @@ class _Batches(torch.utils.data.Sampler):
         return iter(self.batches)
 
 
-def _train_stream(n: int, b: int, per_epoch: int, seed: int,
-                  start: int) -> Iterator[list[tuple[int, int]]]:
-    """The train stream's batches of ``b`` from position ``start`` on,
-    endless, as (position, record) pairs over ``n`` records; an epoch's
+def shard_span(n: int, index: int, count: int, drop_remainder: bool) -> tuple[int, int]:
+    """[start, end) of shard ``index`` of ``count`` over ``n`` records, as
+    grain's ``even_split``: contiguous spans of ``n // count``, the
+    remainder one each to the first shards unless ``drop_remainder``."""
+    per = n // count
+    start, end = per * index, per * (index + 1)
+    if not drop_remainder:
+        rest = n % count
+        start += min(index, rest)
+        end += min(index + 1, rest)
+    return start, end
+
+
+def _train_stream(span: tuple[int, int], shard: tuple[int, int], b: int, per_epoch: int,
+                  seed: int, start: int) -> Iterator[list[tuple[int, int]]]:
+    """The train stream's batches of ``b`` from local position ``start``
+    on, endless, as (sampler index, record) pairs over the records of
+    ``span``, the range of shard ``shard = (index, count)``; an epoch's
     worth (``per_epoch`` batches) shuffled at a time. A plain function: the
     DataLoader's iterator holds this generator, and a generator of the
     loader's would make a reference cycle, whose collection stops the
     workers only by timeouts."""
-    span = max(per_epoch, 1) * b
+    lo, n = span[0], span[1] - span[0]
+    index, count = shard
+    width = max(per_epoch, 1) * b
     while True:
-        positions = start + np.arange(span, dtype=np.int64)
-        pairs = list(zip(positions.tolist(), (shuffled_positions(positions, n, seed) % n).tolist()))
-        yield from (pairs[i:i + b] for i in range(0, span, b))
-        start += span
+        positions = start + np.arange(width, dtype=np.int64)
+        records = lo + shuffled_positions(positions, n, seed) % n
+        pairs = list(zip((positions * count + index).tolist(), records.tolist()))
+        yield from (pairs[i:i + b] for i in range(0, width, b))
+        start += width
 
 
 def _collate(samples: list) -> tuple[torch.Tensor, torch.Tensor]:
@@ -232,7 +260,7 @@ def _collate(samples: list) -> tuple[torch.Tensor, torch.Tensor]:
 
 class ImageFolderLoader:
     """One split of an ImageFolder as the JAX package's ``GrainImageLoader``
-    reads it (see the module docstring), one process only.
+    reads it (see the module docstring), this process's shard of it.
 
     ``batch_scope = "host"``: a batch is this process's. ``resumable_epochs
     = False``: the epoch counter does not fix the data order; the stream
@@ -255,11 +283,20 @@ class ImageFolderLoader:
         device: str | torch.device = "cuda",
         mp_context: str = "fork",
     ):
-        process_count("the ImageFolder loader")
         if not 0 <= seed < 2**32:
             raise ValueError(f"seed must be a 32-bit unsigned integer, got {seed}")
         self.source = ImageFolderSource(split_dir)
-        self.batch_size = total_batch_size
+        count = process_count()
+        if total_batch_size % count:
+            raise ValueError(
+                f"total_batch_size={total_batch_size} not divisible by the "
+                f"{count} processes of the world")
+        self.shard = (process_index(), count)
+        n = len(self.source)
+        self.span = shard_span(n, *self.shard, drop_remainder=train)
+        # The largest shard's records: what the eval length is counted on.
+        self._max_shard = n // count if train else -(-n // count)
+        self.batch_size = total_batch_size // count
         self.train = train
         self.num_workers = num_workers
         self.seed = seed
@@ -287,14 +324,20 @@ class ImageFolderLoader:
             persistent_workers=num_workers > 0,
             multiprocessing_context=mp_context if num_workers > 0 else None,
         )
-        n = len(self.source)
-        self._fingerprint = hashlib.sha256(
-            f"{self.source!r}|{n}|{total_batch_size}|{seed}".encode()).digest()[:16]
+        ident = f"{self.source!r}|{n}|{total_batch_size}|{seed}"
+        if count > 1:
+            ident += f"|shard {self.shard[0]} of {count}"
+        self._fingerprint = hashlib.sha256(ident.encode()).digest()[:16]
+
+    @property
+    def shard_size(self) -> int:
+        return self.span[1] - self.span[0]
 
     def __len__(self) -> int:
-        """Train: whole batches per epoch (drop remainder); eval: batches
-        of one pass, the last one padded."""
-        n = len(self.source)
+        """Train: whole batches of the shard per epoch (drop remainder);
+        eval: batches of one pass over the largest shard, the last one
+        padded (the same on every rank)."""
+        n = self._max_shard
         return n // self.batch_size if self.train else -(-n // self.batch_size)
 
     @property
@@ -305,7 +348,7 @@ class ImageFolderLoader:
     def get_stream_state(self) -> bytes:
         """The train stream's position, its pass's shuffle seed and this
         loader's fingerprint, packed."""
-        pass_seed = (self.seed + self.position // len(self.source)) % 2**32
+        pass_seed = (self.seed + self.position // self.shard_size) % 2**32
         return _STATE.pack(_STATE_MAGIC, self.position, pass_seed, self._fingerprint)
 
     def set_stream_state(self, blob: bytes) -> None:
@@ -318,7 +361,7 @@ class ImageFolderLoader:
             raise ValueError(
                 "stream state belongs to another loader (split dir, size, batch "
                 "or seed differ)")
-        if pass_seed != (self.seed + position // len(self.source)) % 2**32:
+        if pass_seed != (self.seed + position // self.shard_size) % 2**32:
             raise ValueError("stream state is inconsistent (pass seed)")
         self.position = position
 
@@ -341,15 +384,27 @@ class ImageFolderLoader:
             start = self.position
             self.position += count * self.batch_size
             if self._it is None or self._it_position != start:
-                self._sampler.batches = _train_stream(len(self.source), self.batch_size,
+                self._sampler.batches = _train_stream(self.span, self.shard, self.batch_size,
                                                       len(self), self.seed, start)
                 self._it, self._it_position = iter(self._loader), start
-        else:
-            n, b = len(self.source), self.batch_size
-            pairs = [(i, i) for i in range(min(count * b, n))]
-            self._sampler.batches = [pairs[i:i + b] for i in range(0, len(pairs), b)]
-            self._it = iter(self._loader)
-        return (self._next_batch for _ in range(count)), count
+            return (self._next_batch for _ in range(count)), count
+        b, (lo, hi) = self.batch_size, self.span
+        pairs = [(i, lo + i) for i in range(min(count * b, hi - lo))]
+        self._sampler.batches = [pairs[i:i + b] for i in range(0, len(pairs), b)]
+        self._it = iter(self._loader)
+        real = len(self._sampler.batches)
+        return (self._next_batch if i < real else self._pad_batch
+                for i in range(count)), count
+
+    def _pad_batch(self):
+        """An eval batch of padding only: a rank whose shard ran out before
+        the largest one's."""
+        size = self.image_size
+        images = torch.zeros((self.batch_size, size, size, 3), dtype=torch.uint8)
+        labels = torch.full((self.batch_size,), PAD_LABEL, dtype=torch.int32)
+        if self.device.type == "cuda":
+            images, labels = images.pin_memory(), labels.pin_memory()
+        return images, labels
 
     def close(self) -> None:
         """Stop the worker processes now (they stop with the loader

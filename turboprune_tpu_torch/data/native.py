@@ -42,6 +42,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.multihost import is_primary, process_count, process_index, sync_hosts
 from .padding import pad_eval_batch_host
 from .pipeline import HostBuffers, stream_batches
 
@@ -321,19 +322,6 @@ def make_shard(n: int, pid: int, nproc: int) -> np.ndarray:
     return np.arange(pid, n, nproc, dtype=np.int64)
 
 
-def process_count(what: str = "the .tpk loader") -> int:
-    """1: the port runs as one process. A launch with a torch.distributed
-    world of more than one process raises (ROADMAP.md queue A, item 13)."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        world = torch.distributed.get_world_size()
-    if world > 1:
-        raise NotImplementedError(
-            f"{what} in a world of {world} processes is not yet ported to "
-            "turboprune_tpu_torch (ROADMAP.md queue A, item 13)")
-    return 1
-
-
 class TpkImageLoader:
     """Epoch iterator over a .tpk: native decode, the process's shard,
     normalisation on the device — the FFCV ``Loader`` contract: train =
@@ -343,10 +331,17 @@ class TpkImageLoader:
     The epoch's order is ``default_rng(seed + epoch).permutation(shard)``
     and its decode seed ``seed * 1_000_003 + epoch``, as in the JAX package,
     so the ``epoch`` counter (which the mid-level slot restores) is the
-    loader's whole state. Batches are decoded into reusable host buffers
+    loader's whole state. ``batch_scope = "host"``: in a world of W
+    processes rank p reads the strided shard ``make_shard(n, p, W)`` in
+    batches of ``total_batch_size / W`` (which must divide); the train
+    length is the steps every rank can take, the eval length the largest
+    shard's batches, the shorter shards padded, so the ranks' steps line
+    up. Batches are decoded into reusable host buffers
     (pinned for a CUDA device) and reach ``device`` through the prefetch
     engine (``pipeline.stream_batches``); ``last_pipeline_stats`` holds the
     engine's stage times of the latest epoch."""
+
+    batch_scope = "host"
 
     def __init__(
         self,
@@ -362,6 +357,10 @@ class TpkImageLoader:
     ):
         self.file = TpkFile(path)
         nproc = process_count()
+        if total_batch_size % nproc:
+            raise ValueError(
+                f"total_batch_size={total_batch_size} not divisible by the "
+                f"{nproc} processes of the world")
         self.batch_size = total_batch_size // nproc
         self._nproc = nproc
         self.train = train
@@ -373,7 +372,7 @@ class TpkImageLoader:
         self.device = torch.device(device)
         self.epoch = 0
         self.last_pipeline_stats: Optional[dict] = None
-        self._shard = make_shard(self.file.num_samples, 0, nproc)
+        self._shard = make_shard(self.file.num_samples, process_index(), nproc)
         self.buffers = HostBuffers(
             (self.batch_size, *self.file.sample_shape(image_size)),
             pin=self.device.type == "cuda")
@@ -454,7 +453,8 @@ class TpkLoaders:
     tpk``): ``tpk_train_path`` / ``tpk_val_path``, or
     ``<data_root_dir>/{train,val}.tpk``. With ``auto_pack``, a missing file is
     packed first from the ImageFolder split ``<data_root_dir>/{train,val}``
-    (written to a temp file and renamed: one process, so no barrier)."""
+    (by the primary, written to a temp file and renamed; every rank waits
+    at ``sync_hosts`` for it)."""
 
     def __init__(
         self,
@@ -471,7 +471,6 @@ class TpkLoaders:
         auto_pack: bool = False,
         device: str | torch.device = "cuda",
     ):
-        process_count()
         root = Path(data_root_dir)
         train_tpk = Path(train_path) if train_path else root / "train.tpk"
         val_tpk = Path(val_path) if val_path else root / "val.tpk"
@@ -494,7 +493,10 @@ class TpkLoaders:
 
     @staticmethod
     def _maybe_pack(split_dir: Path, tpk_path: Path) -> None:
-        if not tpk_path.exists() and split_dir.is_dir():
+        # Every rank reaches the barrier, whatever its own view of the
+        # files: a rank that skipped it would hang the others.
+        if is_primary() and not tpk_path.exists() and split_dir.is_dir():
             tmp = tpk_path.with_suffix(".tpk.tmp")
             pack_imagefolder(split_dir, tmp)
             os.replace(tmp, tpk_path)
+        sync_hosts(f"tpk_pack:{tpk_path.name}")

@@ -1,11 +1,15 @@
-"""The outer pruning-level loop (port of ``turboprune_tpu/driver.py``), on
-one process.
+"""The outer pruning-level loop (port of ``turboprune_tpu/driver.py``).
 
 The driver owns the LEVEL loop (density ladder, prune between levels,
 rewind, level checkpoints, resume at a level); the harness owns the epoch
-loop. ``run_cyclic`` is the same loop with the cyclic harness. Multi-process
-runs (the JAX package's broadcast and cross-host agreement checks) are a
-later slice (ROADMAP.md queue A, item 13).
+loop. ``run_cyclic`` is the same loop with the cyclic harness.
+
+In a world of several processes (``parallel/``) pruning runs replicated:
+every rank runs the same seeded criterion on the same state (the
+data-driven ones on the same global batch, gathered from a host-scope
+loader's shards) and the driver asserts once per level that params and
+masks agree bit for bit (``check_state_equality``). The primary decides the
+experiment directory and broadcasts it; it alone prints and writes.
 """
 
 from __future__ import annotations
@@ -18,6 +22,14 @@ from .config.schema import MainConfig, parse_nm
 from .data.cifar import derived_generator
 from .harness import CyclicPruningHarness, PruningHarness
 from .ops import masking
+from .parallel import (
+    broadcast_object,
+    check_state_equality,
+    is_primary,
+    local_batchnorm,
+    process_count,
+    say,
+)
 from .pruning import DATA_DRIVEN_METHODS, generate_densities, prune_the_model
 from .sparse.nm import project_masks
 from .utils import (
@@ -44,13 +56,24 @@ def restore_level(harness: PruningHarness, level: int) -> None:
 
 def _first_train_batch(harness: PruningHarness) -> tuple:
     """The scoring batch of the data-driven criteria: the first batch of a
-    pass over the train loader. As in the JAX package, taking it starts an
-    epoch of the loader (its epoch counter moves on), so the epochs trained
-    after the prune see the same augmentation and shuffle streams as the
-    JAX package's."""
-    for batch in harness.loaders.train_loader:
+    pass over the train loader, the GLOBAL batch on every rank. As in the
+    JAX package, taking it starts an epoch of the loader (its epoch counter
+    moves on), so the epochs trained after the prune see the same
+    augmentation and shuffle streams as the JAX package's. A host-scope
+    loader's rank holds only its rows: they are all-gathered, rank 0's
+    first, so every rank scores the same batch and derives the same masks."""
+    loader = harness.loaders.train_loader
+    for batch in loader:
+        if getattr(loader, "batch_scope", "global") == "host" and process_count() > 1:
+            batch = tuple(_all_gather_rows(t) for t in batch)
         return batch
     raise RuntimeError("empty train loader")
+
+
+def _all_gather_rows(t: torch.Tensor) -> torch.Tensor:
+    parts = [torch.empty_like(t) for _ in range(process_count())]
+    torch.distributed.all_gather(parts, t.contiguous())
+    return torch.cat(parts)
 
 
 def prune_level(harness: PruningHarness, density: float, level: int) -> None:
@@ -70,27 +93,28 @@ def prune_level(harness: PruningHarness, density: float, level: int) -> None:
     if ep.nm_sparsity:
         nm_spec = (*parse_nm(ep.nm_sparsity), ep.nm_transposable)
     before = masking.overall_sparsity(state.masks)
-    state.masks = prune_the_model(method, state.model, state.masks, density,
-                                  generator=generator, batch=batch,
-                                  nm=nm_spec if method == "nm" else None)
+    # Every rank scores the whole global batch: BatchNorm takes the
+    # statistics of that batch on each rank, with no collective.
+    with local_batchnorm(state.model):
+        state.masks = prune_the_model(method, state.model, state.masks, density,
+                                      generator=generator, batch=batch,
+                                      nm=nm_spec if method == "nm" else None)
     nm_note = ""
     if nm_spec is not None and method not in ("nm", "just dont"):
         state.masks, nm_report = project_masks(state.model.state_dict(), state.masks, *nm_spec)
         nm_note = (f", {ep.nm_sparsity} projection kept "
                    f"{nm_report['preserved_magnitude_frac']:.3f} of magnitude")
     after = masking.overall_sparsity(state.masks)
-    print(
-        f"[prune] level {level}: {method} to density {density:.4f} "
-        f"(sparsity {before:.2f}% -> {after:.2f}%){nm_note}",
-        flush=True,
-    )
+    say(f"[prune] level {level}: {method} to density {density:.4f} "
+        f"(sparsity {before:.2f}% -> {after:.2f}%){nm_note}")
     reset_weights(cfg.pruning_params.training_type, state, harness.ckpts)
-    print(
-        f"[prune] level {level}: achieved density "
+    say(f"[prune] level {level}: achieved density "
         f"{masking.overall_density(state.masks):.6f} after "
-        f"{cfg.pruning_params.training_type} rewind",
-        flush=True,
-    )
+        f"{cfg.pruning_params.training_type} rewind")
+    if process_count() > 1:
+        # Once per level: the exact digest is a full device-to-host copy.
+        tree = state.model_tree()
+        check_state_equality({"params": tree["params"], "masks": tree["masks"]}, exact=True)
 
 
 def run(
@@ -103,18 +127,23 @@ def run(
     device = resolve_device(device)
     ep = cfg.experiment_params
     set_seed(ep.seed)
+    # The experiment dir is decided on the primary and broadcast.
     start_level = 0
+    prefix = expt_dir = ""
     if ep.resume_experiment:
-        prefix, expt_dir, start_level = resume_experiment(cfg)
-        # A resumed level starts, as every level > 0 does, from the level
-        # below's checkpoint.
-        if start_level and not ExperimentCheckpoints(expt_dir).has_level(start_level - 1):
-            raise FileNotFoundError(
-                f"resume_level={start_level} needs checkpoint model_level_{start_level - 1}"
-            )
-    else:
+        if is_primary():
+            prefix, expt_dir, start_level = resume_experiment(cfg)
+    elif is_primary():
         prefix, expt_dir = gen_expt_dir(cfg)
-    save_config(expt_dir, cfg)
+    prefix, expt_dir, start_level = broadcast_object((prefix, expt_dir, start_level))
+    # A resumed level starts, as every level > 0 does, from the level
+    # below's checkpoint.
+    if start_level and not ExperimentCheckpoints(expt_dir).has_level(start_level - 1):
+        raise FileNotFoundError(
+            f"resume_level={start_level} needs checkpoint model_level_{start_level - 1}"
+        )
+    if is_primary():
+        save_config(expt_dir, cfg)
     harness = harness_cls(cfg, (prefix, expt_dir), device=device)
 
     pp = cfg.pruning_params

@@ -41,8 +41,21 @@ target) and any mask computed from the weights see them. With
 weights (``train.eval_weights``). With ``experiment_params.use_wandb``
 every epoch row also goes to wandb (``utils/wandb_logging.py``).
 
+Data parallel (a world of W processes launched by ``torchrun``, one per
+device, ``parallel/``): the harness lays the world out as a mesh
+(``experiment_params.num_devices`` 0 or W, ``model_parallelism`` 1),
+broadcasts rank 0's initial weights, gives the BatchNorm layers the data
+group (global-batch statistics), and steps each rank on its rows of the
+global batch with the gradients averaged over the group. Epoch and
+evaluation sums are all-reduced, so every rank logs the global numbers;
+the CSVs, wandb, the console and every checkpoint are written by the
+primary, except each rank's own train-stream position in the mid-level
+slot. Before a plan re-instantiates the model, every rank asserts that it
+derived the same widths.
+
 Options of the JAX harness that later slices port raise here, naming the
-ROADMAP.md item: more than one device, the profiler trace.
+ROADMAP.md item: the model axis (13b), the profiler trace (17), and the
+compiled step in a world of more than one process (13c).
 """
 
 from __future__ import annotations
@@ -61,6 +74,17 @@ from ..data import create_loaders
 from ..models import create_model
 from ..models.pretrained import load_pretrained
 from ..ops import masking
+from ..parallel import (
+    all_reduce_sums,
+    assert_width_agreement,
+    broadcast_module,
+    create_mesh,
+    process_count,
+    process_index,
+    say,
+    set_batchnorm_group,
+    shard_batch,
+)
 from ..serve.metrics import ServeMetrics
 from ..sparse import (
     build_graph,
@@ -117,8 +141,7 @@ def refuse_unported(cfg: MainConfig) -> None:
     """Raise on the options whose slice of the port is still to come."""
     ep = cfg.experiment_params
     unported = {
-        "experiment_params.num_devices > 1": (ep.num_devices > 1, "item 13"),
-        "experiment_params.model_parallelism > 1": (ep.model_parallelism > 1, "item 13"),
+        "experiment_params.model_parallelism > 1": (ep.model_parallelism > 1, "item 13b"),
         "experiment_params.profile_dir": (bool(ep.profile_dir), "item 17"),
     }
     for knob, (on, item) in unported.items():
@@ -130,7 +153,7 @@ def refuse_unported(cfg: MainConfig) -> None:
 
 
 class PruningHarness:
-    """Trainer for one experiment on one device."""
+    """Trainer for one experiment on this process's device."""
 
     def __init__(
         self,
@@ -145,6 +168,18 @@ class PruningHarness:
         ep = cfg.experiment_params
         dp = cfg.dataset_params
         op = cfg.optimizer_params
+        self.mesh = create_mesh(ep.num_devices, ep.model_parallelism)
+        if dp.total_batch_size % self.mesh.data_size:
+            raise ValueError(
+                f"total_batch_size={dp.total_batch_size} not divisible by the data "
+                f"axis's {self.mesh.data_size} processes — adjust total_batch_size "
+                "or num_devices")
+        if cfg.model_params.use_compile and self.mesh.data_size > 1:
+            raise NotImplementedError(
+                "model_params.use_compile in a world of more than one process is "
+                "not yet ported to turboprune_tpu_torch (ROADMAP.md queue A, "
+                "item 13c): the BatchNorm all-reduce would run inside the "
+                "compiled graphs")
         self.compute_dtype = PRECISION_DTYPES[ep.training_precision]
         self._make_optimizer = create_optimizer(
             op.optimizer_name, momentum=op.momentum, weight_decay=op.weight_decay
@@ -167,6 +202,11 @@ class PruningHarness:
             # weight from the level below's checkpoint.
             load_pretrained(cfg.model_params.pretrained_path, model)
         self.model = model.to(self.device)
+        # Rank 0's weights on every rank (each drew the same from the seed;
+        # this makes it so whatever a rank loaded), and the data group the
+        # BatchNorm statistics are taken over.
+        broadcast_module(self.model, self.mesh)
+        set_batchnorm_group(self.model, self.mesh)
         self.loaders = create_loaders(cfg, self.device)
         self.ckpts = ExperimentCheckpoints(self.expt_dir)
         # The mid-level slot's identity: a slot stamped with another config
@@ -235,7 +275,8 @@ class PruningHarness:
         )
         self._current_epochs = epochs
         self._schedule = schedule
-        self._train_step = make_train_step(schedule, self._train_forward, self.dropout_noise)
+        self._train_step = make_train_step(schedule, self._train_forward, self.dropout_noise,
+                                           self.mesh)
         self.state = reset_optimizer(self.state, self._make_optimizer)
 
     def maybe_rewind_optimizer(self, level: int) -> None:
@@ -267,12 +308,14 @@ class PruningHarness:
         else:
             stream = iter(loader)
             items = itertools.islice(stream, self.steps_per_epoch)
+        scope = getattr(loader, "batch_scope", "global")
         try:
             for images, labels in items:
                 if images.dim() == 5:
-                    yield from zip(images.unbind(0), labels.unbind(0))
+                    for batch in zip(images.unbind(0), labels.unbind(0)):
+                        yield shard_batch(batch, self.mesh, scope)
                 else:
-                    yield images, labels
+                    yield shard_batch((images, labels), self.mesh, scope)
         finally:
             # Stops a streaming loader's engine now, not when the iterator
             # is collected, so its stage times are final for this epoch.
@@ -295,6 +338,7 @@ class PruningHarness:
                 "train loader yielded no batches — dataset smaller than "
                 "total_batch_size with drop_last?"
             )
+        sums = all_reduce_sums(sums, self.mesh)
         sums = {k: float(v) for k, v in sums.items()}  # waits for the device
         wall = time.perf_counter() - t0
         n = sums["count"]
@@ -323,10 +367,14 @@ class PruningHarness:
 
     def _evaluate_on(self, model, masks, forward) -> dict:
         sums = None
-        for batch in self.loaders.test_loader:
+        loader = self.loaders.test_loader
+        scope = getattr(loader, "batch_scope", "global")
+        for batch in loader:
+            batch = shard_batch(batch, self.mesh, scope)
             sums = add_sums(sums, eval_step(model, masks, batch, forward))
         if sums is None:
             raise RuntimeError("test loader yielded no batches")
+        sums = all_reduce_sums(sums, self.mesh)
         sums = {k: float(v) for k, v in sums.items()}
         n = sums["count"]
         return {
@@ -397,6 +445,9 @@ class PruningHarness:
             nm_min_axis_savings=pl.nm_min_axis_savings,
             autotune=pl.autotune,
         )
+        # A collective: every rank calls it, also when nothing compacts,
+        # before any model is re-instantiated at the plan's widths.
+        assert_width_agreement(plan.plan_signature())
         self.last_plan_report = plan.report
         self.compact_metrics.record_plan(plan.report)
         if plan.kind == "masked":
@@ -408,9 +459,11 @@ class PruningHarness:
         self._evict_stale_plan_caches(width_key, nm_key)
         if key not in self._plan_step_cache:
             model = self._small_model(plan.width_overrides, plan.nm_overrides)
+            set_batchnorm_group(model, self.mesh)
             forward, eval_fwd = self._plan_forwards(model)
             self._plan_step_cache[key] = (
-                model, make_train_step(self._schedule, forward, self.dropout_noise), eval_fwd)
+                model, make_train_step(self._schedule, forward, self.dropout_noise, self.mesh),
+                eval_fwd)
         self._export_cache_gauges()
         model, train_step, eval_fwd = self._plan_step_cache[key]
         self._plan_ctx = {"plan": plan, "anchor": self.state,
@@ -426,7 +479,7 @@ class PruningHarness:
         if plan.nm is not None:
             parts.append(f"{r['backend_counts']['nm_layers']} layers gathered "
                          f"(coverage {r['coverage_frac']:.2f})")
-        print(f"[plan] level runs {plan.kind}: " + ", ".join(parts), flush=True)
+        say(f"[plan] level runs {plan.kind}: " + ", ".join(parts))
 
     def _exit_plan(self) -> None:
         """Back to full coordinates and the masked-dense step. Idempotent;
@@ -517,10 +570,10 @@ class PruningHarness:
         }
         get_stream = getattr(train_loader, "get_stream_state", None)
         if get_stream is not None:
-            # One process: its blob is file 0 (the JAX package writes one
-            # per host).
-            self.ckpts.save_mid_level_stream(level, epoch, get_stream(), 0)
-            meta["train_loader_stream_hosts"] = 1
+            # Every rank writes its own blob (its shard's position); the
+            # header, written by the primary, says how many there are.
+            self.ckpts.save_mid_level_stream(level, epoch, get_stream(), process_index())
+            meta["train_loader_stream_hosts"] = process_count()
         self.ckpts.save_mid_level(level, epoch, self._full_state(), meta=meta)
 
     def _run_epoch(self, row: dict, max_test_acc: float, snapshot_ok: bool) -> float:
@@ -552,21 +605,15 @@ class PruningHarness:
             return 0, 0.0
         restored = None
         if mid.get("config_hash") != self.config_hash:
-            print(
-                "[resume] REFUSING mid-level restore: slot config hash "
+            say("[resume] REFUSING mid-level restore: slot config hash "
                 f"{mid.get('config_hash')!r} != current {self.config_hash!r} "
                 f"(run {mid.get('run_id')!r}) — the config changed since the "
-                "slot was written; replaying the level from its start",
-                flush=True,
-            )
+                "slot was written; replaying the level from its start")
         elif mid["level"] == level:
             restored = self.ckpts.load_mid_level(level, mid["epoch"])
             if restored is None:
-                print(
-                    "[resume] mid-level slot is torn (header/state disagree) — "
-                    "replaying the level",
-                    flush=True,
-                )
+                say("[resume] mid-level slot is torn (header/state disagree) — "
+                    "replaying the level")
         if restored is None:
             self.ckpts.clear_mid_level()
             return 0, 0.0
@@ -579,11 +626,7 @@ class PruningHarness:
         self.metrics.level_rows = [dict(r) for r in mid.get("level_rows", [])]
         self._restore_train_stream(mid, level)
         start_epoch = mid["epoch"] + 1
-        print(
-            f"[resume] mid-level checkpoint: re-entering level {level} at "
-            f"epoch {start_epoch}",
-            flush=True,
-        )
+        say(f"[resume] mid-level checkpoint: re-entering level {level} at epoch {start_epoch}")
         return start_epoch, mid.get("max_test_acc", 0.0)
 
     def _restore_train_stream(self, mid: dict, level: int) -> str:
@@ -601,38 +644,32 @@ class PruningHarness:
         epoch = mid["train_loader_epoch"]
         if mid.get("train_loader_stream_hosts") and hasattr(train_loader, "set_stream_state"):
             blob = None
-            if mid["train_loader_stream_hosts"] == 1:
-                blob = self.ckpts.load_mid_level_stream(level, mid["epoch"], 0)
+            if mid["train_loader_stream_hosts"] == process_count():
+                blob = self.ckpts.load_mid_level_stream(level, mid["epoch"], process_index())
             if blob is None:
-                print(
-                    "[resume] stream-state blob missing or from another save or "
-                    "process count; falling back to a fresh shuffle pass",
-                    flush=True,
-                )
+                say("[resume] stream-state blob missing or from another save or "
+                    "process count; falling back to a fresh shuffle pass")
             else:
                 try:
                     train_loader.set_stream_state(blob)
                 except ValueError as e:  # another loader's state
-                    print(f"[resume] stream state rejected ({e}); falling back "
-                          "to a fresh shuffle pass", flush=True)
+                    say(f"[resume] stream state rejected ({e}); falling back "
+                        "to a fresh shuffle pass")
                 else:
                     train_loader.epoch = epoch
                     return "stream"
         elif getattr(train_loader, "resumable_epochs", True) and hasattr(train_loader, "epoch"):
             train_loader.epoch = epoch
             return "epoch"
-        print(
-            "[resume] WARNING: the resumed run sees a fresh shuffle pass — "
+        say("[resume] WARNING: the resumed run sees a fresh shuffle pass — "
             "statistically equivalent, NOT bit-identical to an "
-            "uninterrupted run",
-            flush=True,
-        )
+            "uninterrupted run")
         return "fresh"
 
     def _log_console(self, row: dict) -> None:
         # Rows of the cyclic harness carry their cycle.
         cycle = f" C{row['cycle']}" if "cycle" in row else ""
-        print(
+        say(
             f"[L{row['level']:>2}{cycle} E{row['epoch']:>3}] "
             f"train {row['train_loss']:.4f}/{row['train_acc']:5.2f}% "
             f"test {row['test_loss']:.4f}/{row['test_acc']:5.2f}% "
@@ -640,9 +677,7 @@ class PruningHarness:
             f"sparsity {row['sparsity']:5.2f}% "
             f"{row['samples_per_sec']:,.0f} img/s"
             + ("" if PIPELINE_STAGES[0] not in row else
-               " (waits s: " + ", ".join(f"{k[:-7]} {row[k]:.3f}" for k in PIPELINE_STAGES) + ")"),
-            flush=True,
-        )
+               " (waits s: " + ", ".join(f"{k[:-7]} {row[k]:.3f}" for k in PIPELINE_STAGES) + ")"))
 
 
 def _own_code(fn: types.FunctionType) -> types.FunctionType:

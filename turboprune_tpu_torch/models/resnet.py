@@ -91,7 +91,16 @@ class FlaxBatchNorm2d(nn.Module):
     step (``train.compile_forward``) the buffers are static inputs
     (``train.mark_buffers_static``) and the update is an in-place write the
     CUDA graph replays; inductor fuses the fp32 statistics, the clamp and
-    the normalisation and keeps these numerics."""
+    the normalisation and keeps these numerics.
+
+    Data parallel (``sync_mesh``, a ``parallel.Mesh`` set by the harness
+    through ``parallel.set_batchnorm_group``; None in a world of one): the
+    training statistics are the global batch's, as under the JAX mesh. The
+    per-channel sum and sum of squares (fp32) are added up over the data
+    group by an autograd-aware all-reduce (the functional collective, whose
+    backward all-reduces the gradient), then mean and E[x^2] - mean^2 over
+    the global count; the running statistics move by these global values,
+    the same on every rank."""
 
     def __init__(
         self,
@@ -108,13 +117,17 @@ class FlaxBatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.sync_mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             dims = (0, 2, 3)
-            mean = xf.mean(dims)
-            var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+            if self.sync_mesh is None:
+                mean = xf.mean(dims)
+                var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+            else:
+                mean, var = self._global_statistics(xf, dims)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -124,6 +137,17 @@ class FlaxBatchNorm2d(nn.Module):
         mul = torch.rsqrt(var + self.epsilon) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(self.dtype)
+
+    def _global_statistics(self, xf: torch.Tensor, dims: tuple) -> tuple:
+        from torch.distributed import _functional_collectives as funcol
+
+        mesh = self.sync_mesh
+        c = xf.shape[1]
+        local = torch.cat([xf.sum(dims), (xf * xf).sum(dims)])
+        total = funcol.all_reduce(local, "sum", mesh.data_group)
+        count = xf.numel() // c * mesh.data_size
+        mean = total[:c] / count
+        return mean, torch.clamp_min(total[c:] / count - mean * mean, 0.0)
 
 
 class BasicBlock(nn.Module):

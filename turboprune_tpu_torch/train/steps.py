@@ -30,6 +30,15 @@ argument (``models/dropout.py``), in the eager and the compiled step alike.
 Metrics are SUMS (``loss_sum``, ``correct``, ``count``) kept on the device;
 the harness adds them up over an epoch (``add_sums``, into tensors no graph
 owns) and reads them once at its end.
+
+Data parallel (``mesh``, a ``parallel.Mesh`` whose data axis has more than
+one rank): each rank steps on its rows of the global batch, and the step
+replaces every gradient by its mean over the data group
+(``parallel.average_gradients``) between ``backward()`` and
+``optimizer.step()``, the counterpart of the psum XLA inserts into the JAX
+package's sharded step. Dropout's uniforms are drawn for the whole global
+batch and the rank takes its rows, so a world of two draws what a world of
+one draws. In a world of one nothing of this runs.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from torch.func import functional_call
 
 from ..models.dropout import draw_dropout_noise, dropout_shapes
 from ..ops.masking import Masks, apply_masks
+from ..parallel import Mesh, average_gradients
 from .optim import set_lr
 from .state import TrainState
 
@@ -152,25 +162,36 @@ class DropoutNoise:
         digest = hashlib.sha256(repr((self.seed, step, "dropout")).encode()).digest()
         return int.from_bytes(digest[:8], "little") & ((1 << 63) - 1)
 
-    def __call__(self, model: nn.Module, n: int, step: int) -> Noise:
+    def __call__(self, model: nn.Module, n: int, step: int,
+                 mesh: Optional[Mesh] = None) -> Noise:
         """The uniforms of ``model``'s train forward of ``n`` images at
-        ``step``; None (and nothing drawn) for a model without dropout."""
+        ``step``; None (and nothing drawn) for a model without dropout.
+        With a data axis of W ranks, ``n`` is the rank's rows: the noise of
+        the global batch of ``n * W`` images is drawn and the rank's rows of
+        it returned."""
         if not dropout_shapes(model, n):
             return None
         self.generator.manual_seed(self.step_seed(step))
-        return draw_dropout_noise(model, n, self.generator)
+        if mesh is None or mesh.data_size == 1:
+            return draw_dropout_noise(model, n, self.generator)
+        r = mesh.data_rank
+        noise = draw_dropout_noise(model, n * mesh.data_size, self.generator)
+        return [u[r * n:(r + 1) * n] for u in noise]
 
 
 def make_train_step(
     schedule: Callable[[int], float],
     forward: Forward = train_forward,
     dropout_noise: Optional[DropoutNoise] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[TrainState, Batch], dict]:
     """The train step: updates ``state`` in place (params, optimizer, step)
     and returns the metric sums. ``schedule`` sets the lr from the step;
     ``forward`` is ``train_forward`` or its compiled version;
     ``dropout_noise`` draws the step's dropout uniforms (a model with
-    dropout refuses to train without them)."""
+    dropout refuses to train without them); ``mesh``: the data axis the
+    gradients are averaged over (None: one process)."""
+    data_parallel = mesh is not None and mesh.data_size > 1
 
     def train_step(state: TrainState, batch: Batch) -> dict:
         images, labels = batch
@@ -181,10 +202,12 @@ def make_train_step(
         state.optimizer.zero_grad(set_to_none=True)
         noise = None
         if dropout_noise is not None:
-            noise = dropout_noise(state.model, images.shape[0], state.step)
+            noise = dropout_noise(state.model, images.shape[0], state.step, mesh)
         out = forward(state.model, state.masks, images, labels, noise)
         del out["logits"]
         out.pop("loss").backward()
+        if data_parallel:
+            average_gradients(state.model.parameters(), mesh)
         state.optimizer.step()
         state.step += 1
         return out

@@ -29,6 +29,14 @@ On disk the masks are bit-packed, as in the JAX package: each mask becomes
 with raw bool ``masks`` still load: the layout is read from the loaded
 tree's keys.
 
+In a data-parallel run the state is replicated: every write of
+``ExperimentCheckpoints`` (model and level trees, optimizer state, the
+mid-level slot and its header, clearing the slot) happens on the primary
+only and is followed by ``sync_hosts``, so no rank reads before the file
+is there; every rank reads. The one exception is a train stream's
+position, which is each rank's own: every rank writes its
+``mid_level_stream_<rank>``.
+
 Rewind (``reset_weights``): imp -> params and batch_stats from
 model_init, wr -> from model_rewind, lrr / at_init -> keep the trained
 weights; masks are never restored, so the freshly pruned masks survive a
@@ -47,6 +55,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..parallel.multihost import is_primary, sync_hosts
 
 MODEL_FILE = "model.pt"
 OPTIMIZER_FILE = "optimizer.pt"
@@ -139,6 +149,18 @@ def restore_model_tree(path: str | Path) -> dict:
     return tree
 
 
+def _primary_writes(fn):
+    """``fn`` on the primary only, then a barrier every rank meets."""
+
+    def write(self, *args, **kwargs):
+        if is_primary():
+            fn(self, *args, **kwargs)
+        sync_hosts(f"checkpoint:{fn.__name__}")
+
+    write.__name__, write.__doc__ = fn.__name__, fn.__doc__
+    return write
+
+
 class ExperimentCheckpoints:
     """Role-addressed checkpoints under an experiment directory."""
 
@@ -146,6 +168,10 @@ class ExperimentCheckpoints:
         self.expt_dir = Path(expt_dir)
         self.checkpoints_dir = self.expt_dir / "checkpoints"
         self.artifacts_dir = self.expt_dir / "artifacts"
+        self._make_dirs()
+
+    @_primary_writes
+    def _make_dirs(self) -> None:
         self.checkpoints_dir.mkdir(parents=True, exist_ok=True)
         self.artifacts_dir.mkdir(parents=True, exist_ok=True)
 
@@ -158,6 +184,7 @@ class ExperimentCheckpoints:
     def level_path(self, level: int) -> Path:
         return self.checkpoints_dir / f"model_level_{level}"
 
+    @_primary_writes
     def save_model(self, role: str, tree: dict) -> None:
         save_model_tree(self.model_path(role), tree)
 
@@ -170,12 +197,14 @@ class ExperimentCheckpoints:
     def has_level(self, level: int) -> bool:
         return (self.level_path(level) / MODEL_FILE).exists()
 
+    @_primary_writes
     def save_level(self, level: int, tree: dict) -> None:
         save_model_tree(self.level_path(level), tree)
 
     def load_level(self, level: int) -> dict:
         return restore_model_tree(self.level_path(level))
 
+    @_primary_writes
     def save_optimizer(self, role: str, optimizer: torch.optim.Optimizer) -> None:
         _save(self.optimizer_path(role), OPTIMIZER_FILE, optimizer.state_dict())
 
@@ -205,6 +234,7 @@ class ExperimentCheckpoints:
     def _mid_level_meta_path(self) -> Path:
         return self.checkpoints_dir / "mid_level_meta.json"
 
+    @_primary_writes
     def save_mid_level(self, level: int, epoch: int, state, meta: dict) -> None:
         """Write the slot for (level, epoch) from ``state`` (a
         ``train.TrainState``), then its header {level, epoch, **meta}.
@@ -247,7 +277,8 @@ class ExperimentCheckpoints:
         return restored
 
     # A stream-position loader's state (the ImageFolder loader) goes in a
-    # file of its own per process, prefixed by an 8-byte (level, epoch)
+    # file of its own per process, written by that process (no barrier:
+    # the slot's save that follows has one), prefixed by an 8-byte (level, epoch)
     # tag: a preemption between the state's save and the stream's write
     # cannot pair a stale stream with a newer state (the tag disagrees and
     # the loader takes a fresh pass instead).
@@ -272,6 +303,7 @@ class ExperimentCheckpoints:
             return None
         return raw[8:]
 
+    @_primary_writes
     def clear_mid_level(self) -> None:
         """Drop the slot and its stream files. Levels run in ascending
         order, so a slot of another level belongs to an abandoned

@@ -8,6 +8,10 @@ written with the ``csv`` module (no pandas on the card's machine).
 ``resume_experiment`` reopens an experiment dir at a level;
 ``config_fingerprint`` stamps the mid-level slot with the config it was
 trained under (the same string as the JAX package's for the same config).
+In a data-parallel run the driver calls ``gen_expt_dir``,
+``resume_experiment`` and ``save_config`` on the primary only and
+broadcasts the directory; ``MetricsLogger`` keeps its rows on every rank
+(they hold the all-reduced global numbers) and writes on the primary.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 import yaml
 
 from ..config.schema import MainConfig, config_from_dict, config_to_dict
+from ..parallel.multihost import is_primary
 
 CONFIG_FILE = "expt_config.yaml"
 SUBDIRS = ("checkpoints", "metrics", "metrics/level_wise_metrics", "artifacts")
@@ -144,7 +149,12 @@ class MetricsLogger:
             summary["max_test_acc"] = max(float(r["test_acc"]) for r in rows)
         summary["level"] = level
         summary.update(summary_extra or {})
+        self.level_rows = []
+        if is_primary():
+            self._write(level, rows, summary)
+        return summary
 
+    def _write(self, level: int, rows: list, summary: dict) -> None:
         level_dir = self.expt_dir / "metrics" / "level_wise_metrics"
         level_dir.mkdir(parents=True, exist_ok=True)
         columns = list(dict.fromkeys(k for r in rows for k in r))
@@ -159,12 +169,13 @@ class MetricsLogger:
             if new_file:
                 writer.writeheader()
             writer.writerow(summary)
-        self.level_rows = []
-        return summary
 
 
 def display_training_info(cfg: MainConfig, level: int, density: float) -> None:
-    """The level's header and its config knobs, as plain prints."""
+    """The level's header and its config knobs, as plain prints (on the
+    primary)."""
+    if not is_primary():
+        return
     print(f"[level {level}] density={density:.4f}", flush=True)
     for section in ("dataset_params", "model_params", "pruning_params", "optimizer_params"):
         knobs = config_to_dict(cfg)[section]

@@ -12,15 +12,8 @@ import (neither this repo's test machine nor the card's has it) or its
 
 from __future__ import annotations
 
-import torch
-
 from ..config.schema import MainConfig, config_to_dict
-
-
-def _rank() -> int:
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_rank()
-    return 0
+from ..parallel.multihost import is_primary
 
 
 class WandbRun:
@@ -29,7 +22,7 @@ class WandbRun:
 
     def __init__(self, cfg: MainConfig, prefix: str, expt_dir: str):
         self._run = None
-        if not cfg.experiment_params.use_wandb or _rank() != 0:
+        if not cfg.experiment_params.use_wandb or not is_primary():
             return
         try:
             import wandb
