@@ -172,8 +172,18 @@ result line):
             this process's pruning of the world's level-0 weights (bit for
             bit), the step's time a rank and its gradient all-reduce's
             (CUDA events) beside one process's; whether CUDA graphs keep
-            the BatchNorm's functional all-reduce over gloo (a probe); (b)
-            a world of one over NCCL through torchrun on
+            the BatchNorm's functional all-reduce over gloo (a probe); in
+            the same world, ring attention on a ring of 2 (the mesh's model
+            axis): imagenet_imp with mp_deit_small_ring and
+            model_parallelism=2 (DeiT-Small/16 @ 224 at full width, 197
+            tokens padded to 198, 99 a rank; global batch 64 on both ranks,
+            2 steps a level), held like the runs above against one
+            process's first step with dense attention, no K1/K2/K3 launch;
+            ring_attention in fp32 at that shape, output and q/k/v
+            gradients over the world, against dense attention in float64;
+            a ring hop's and the output all-gather's ms (CUDA events). A
+            gloo that refuses a CUDA collective fails the phase. (b) a
+            world of one over NCCL through torchrun on
             run_experiment_torch.py (cifar10_imp, one level): the rank's
             binding to cuda:0, NCCL's init, one experiment dir.
 
@@ -4484,7 +4494,10 @@ def phase_pretrained(train_out: dict, card: str) -> dict:
 # the run's harness; each is checked here afterwards against one process
 # of the same configuration (its first step, at the global batch, and its
 # step time) and against this process's pruning of the world's level-0
-# weights. (b) A world of one over NCCL through torchrun on
+# weights. The same world also runs the ring config (data 1, model 2: ring
+# attention, its sequence sharded over both ranks), held against one
+# process's first step with dense attention, and ring_attention alone in
+# fp32 against float64. (b) A world of one over NCCL through torchrun on
 # run_experiment_torch.py. The card cannot show scaling across GPUs: both
 # ranks share its SMs.
 DP_WORLD = 2
@@ -4507,15 +4520,44 @@ DP_CONFIGS = {
         "experiment_params.epochs_per_level=1",
         f"experiment_params.max_steps_per_epoch={DP_STEPS}",
         "pruning_params.target_sparsity=0.2"]),
+    # The shipped ring config on a ring of the world's 2 ranks (data 1,
+    # model 2): DeiT-Small/16 @ 224 at full width, bf16, IMP, ladder [1.0,
+    # 0.8]; the global batch cut to 64, all of it on both ranks; one eval
+    # batch a level.
+    "ring": ("imagenet_imp", [
+        "model_params=mp_deit_small_ring",
+        f"experiment_params.model_parallelism={DP_WORLD}",
+        "dataset_params.dataloader_type=synthetic",
+        "dataset_params.total_batch_size=64",
+        "dataset_params.synthetic_num_train=128",
+        "dataset_params.synthetic_num_test=64",
+        "experiment_params.epochs_per_level=1",
+        f"experiment_params.max_steps_per_epoch={DP_STEPS}",
+        "pruning_params.target_sparsity=0.2"]),
 }
+# What one process runs instead, as the reference of its first step: ring
+# attention needs a ring, so the same model with dense attention.
+DP_ONE_OVERRIDES = {"ring": ["model_params.attention_impl=dense",
+                             "experiment_params.model_parallelism=1"]}
 # Launches a rank makes in one run: 12 blocks x (2 levels x (steps + eval
-# batches)) forward, 12 x 2 x steps backward; none for the ResNet.
+# batches)) forward, 12 x 2 x steps backward; none for the ResNet, none on
+# the ring (ring attention is not flash).
 DP_LAUNCHES = {
     "deit": {"flash_fwd_cuda": DEPTH * 2 * (DP_STEPS + 1),
              "flash_bwd_dq_cuda": DEPTH * 2 * DP_STEPS,
              "flash_bwd_dkv_cuda": DEPTH * 2 * DP_STEPS},
     "resnet": dict.fromkeys(("flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda"), 0),
+    "ring": dict.fromkeys(("flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda"), 0),
 }
+# ring_attention in fp32 on the card (TF32 off) against dense attention in
+# float64, at the ring run's shape: its global batch x 198 tokens (197
+# valid) x 6 heads x 64. The output within tests/test_ring.py's 1e-5, the
+# q/k/v gradients within tests/test_flash.py's atol 2e-4, rtol 1e-4.
+RING_SHAPE = (64, 198, HEADS, HEAD_DIM)
+RING_VALID = 197
+RING_FWD_TOL = 1e-5
+RING_GRAD_ATOL, RING_GRAD_RTOL = 2e-4, 1e-4
+RING_HOP_REPS = 10
 # bf16 limits of the world's first step against one process's: the loss,
 # and each BatchNorm running statistic after it, within one bf16 ulp (2^-8)
 # of the largest magnitude of the tensor. Both sides compute the same
@@ -4612,7 +4654,8 @@ def _dp_one(name: str, base: str) -> dict:
     from turboprune_tpu_torch.harness import PruningHarness
 
     config, overrides = DP_CONFIGS[name]
-    cfg = compose(config, overrides + [f"experiment_params.base_dir={base}"])
+    cfg = compose(config, overrides + DP_ONE_OVERRIDES.get(name, [])
+                  + [f"experiment_params.base_dir={base}"])
     h = PruningHarness(cfg, ("", f"{base}/one"), device="cuda")
     rec: dict = {"harness": h}
     h.setup_level(1)
@@ -4720,13 +4763,65 @@ def _dp_compile_probe() -> dict:
     return out
 
 
+def _ring_fp32(mesh) -> dict:
+    """ring_attention over ``mesh``'s ring in fp32 at RING_SHAPE (seeded
+    inputs and cotangent, the same on every rank): the worst element of
+    its output and of its q/k/v gradients, as a share of its limit, against
+    dense attention in float64 on the same inputs."""
+    import torch
+
+    from turboprune_tpu_torch.parallel import ring_attention
+
+    g = torch.Generator().manual_seed(21)
+    q, k, v, do = (torch.randn(RING_SHAPE, generator=g).cuda() for _ in range(4))
+    valid = torch.arange(RING_SHAPE[1], device="cuda") < RING_VALID
+    got = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ring_attention(*got, valid, mesh)
+    (out * do).sum().backward()
+    ref = [t.double().requires_grad_() for t in (q, k, v)]
+    s = torch.einsum("bqhd,bkhd->bhqk", ref[0], ref[1]) / math.sqrt(RING_SHAPE[-1])
+    p = s.masked_fill(~valid[None, None, None, :], -math.inf).softmax(-1)
+    want = torch.einsum("bhqk,bkhd->bqhd", p, ref[2])
+    (want * do.double()).sum().backward()
+
+    def share(a, b, atol, rtol):
+        return float(((a.double() - b).abs() / (atol + rtol * b.abs())).max())
+
+    return {"out": share(out.detach(), want.detach(), RING_FWD_TOL, RING_FWD_TOL),
+            **{n: share(t.grad, r.grad, RING_GRAD_ATOL, RING_GRAD_RTOL)
+               for n, t, r in zip(("dq", "dk", "dv"), got, ref)}}
+
+
+def _ring_comm_ms(mesh) -> dict:
+    """The median ms (CUDA events, host staging included) of one ring hop
+    of a block's keys and values with their validity row (bf16 [2, 64,
+    99, 6, 64] and [99]) and of the all-gather of its output ([64, 99, 6,
+    64]), on ``mesh``'s ring; every rank times the same calls in step."""
+    import torch
+
+    from turboprune_tpu_torch.parallel import ring_shift
+    from turboprune_tpu_torch.parallel.ring import _all_gather
+
+    b, s, h, d = RING_SHAPE
+    shard = s // mesh.model_size
+    kv = torch.randn(2, b, shard, h, d, generator=torch.Generator().manual_seed(22)).to(
+        "cuda", torch.bfloat16)
+    valid = torch.ones(shard, dtype=torch.bool, device="cuda")
+    return {"hop_ms": _call_ms(lambda: ring_shift((kv, valid), mesh.model_group),
+                               reps=RING_HOP_REPS),
+            "gather_ms": _call_ms(lambda: _all_gather(kv[0], mesh.model_group, dim=1),
+                                  reps=RING_HOP_REPS)}
+
+
 def dp_rank(out_dir: str) -> int:
     """One rank of the dp phase's world (``chip_smoke.py --dp-rank DIR``,
-    started by ``phase_dp`` with the launcher's variables)."""
+    started by ``phase_dp`` with the launcher's variables). A collective
+    that gloo refuses on CUDA tensors raises, and the rank exits non-zero."""
     import torch
     import torch.distributed as dist
 
     from turboprune_tpu_torch.parallel import (
+        create_mesh,
         destroy_distributed,
         initialize_distributed,
         process_index,
@@ -4739,17 +4834,16 @@ def dp_rank(out_dir: str) -> int:
     out: dict = {"rank": rank, "device": str(device), "join_s": time.perf_counter() - T_IMPORT}
     try:
         probe = torch.full((4,), float(rank + 1), device=device)
-        try:
-            dist.all_reduce(probe)
-        except RuntimeError as e:  # this torch's gloo refuses CUDA tensors
-            out["gloo_refused"] = str(e)[:500]
-        else:
-            out["gloo_sum"] = probe.tolist()
-            for name in DP_CONFIGS:
-                res = _dp_config(name, f"{out_dir}/{name}_world")
-                torch.save(res.pop("stats"), f"{out_dir}/{name}_stats_{rank}.pt")
-                out[name] = res
-            out["compile_probe"] = _dp_compile_probe()
+        dist.all_reduce(probe)
+        out["gloo_sum"] = probe.tolist()
+        for name in DP_CONFIGS:
+            res = _dp_config(name, f"{out_dir}/{name}_world")
+            torch.save(res.pop("stats"), f"{out_dir}/{name}_stats_{rank}.pt")
+            out[name] = res
+        ring = create_mesh(model_parallelism=DP_WORLD)
+        out["ring_fp32"] = _ring_fp32(ring)
+        out["ring_comm"] = _ring_comm_ms(ring)
+        out["compile_probe"] = _dp_compile_probe()
     finally:
         destroy_distributed()
     Path(out_dir, f"rank_{rank}.json").write_text(json.dumps(out))
@@ -4824,24 +4918,23 @@ def phase_dp(card: str) -> dict:
         Path(base, "world").mkdir()
         ranks = _dp_world(f"{base}/world", beside)
         world_s = time.perf_counter() - t0
-        if "gloo_refused" in ranks[0]:
-            log(f"dp world of {DP_WORLD} over gloo NOT run: this torch's gloo refused a CUDA "
-                f"all-reduce ({ranks[0]['gloo_refused']})")
-        else:
-            log(f"dp world of {DP_WORLD} over gloo on one card: ranks on "
-                f"{[r['device'] for r in ranks]}, a CUDA all-reduce of 1 + 2 gave "
-                f"{ranks[0]['gloo_sum']}; {world_s:.1f} s with start-up (rank 0: joined "
-                f"after {ranks[0]['join_s']:.1f} s; "
-                + ", ".join(f"{n} run {ranks[0][n]['wall_s']:.1f} s, waited "
-                            f"{ranks[0][n]['waited_s']:.1f} s" for n in DP_CONFIGS)
-                + f"; beside it, torchrun and the one-process first steps {nccl['s']:.1f} s)")
-            for name in DP_CONFIGS:
-                t1 = time.perf_counter()
-                launches = _dp_check(name, ranks, f"{base}/world", card, launches, ones.pop(name))
-                log(f"dp {name} checked against one process in {time.perf_counter() - t1:.1f} s")
-            probe = ranks[0]["compile_probe"]
-            log("dp compiled all-reduce probe (dynamo, the cudagraphs backend, gloo, rank 0): "
-                f"{probe}")
+        log(f"dp world of {DP_WORLD} over gloo on one card: ranks on "
+            f"{[r['device'] for r in ranks]}, a CUDA all-reduce of 1 + 2 gave "
+            f"{ranks[0]['gloo_sum']}; {world_s:.1f} s with start-up (rank 0: joined "
+            f"after {ranks[0]['join_s']:.1f} s; "
+            + ", ".join(f"{n} run {ranks[0][n]['wall_s']:.1f} s, waited "
+                        f"{ranks[0][n]['waited_s']:.1f} s" for n in DP_CONFIGS)
+            + f"; beside it, torchrun and the one-process first steps {nccl['s']:.1f} s)")
+        if ranks[0]["gloo_sum"] != [3.0] * 4:
+            raise AssertionError(f"gloo's CUDA all-reduce of 1 + 2 gave {ranks[0]['gloo_sum']}")
+        for name in DP_CONFIGS:
+            t1 = time.perf_counter()
+            launches = _dp_check(name, ranks, f"{base}/world", card, launches, ones.pop(name))
+            log(f"dp {name} checked against one process in {time.perf_counter() - t1:.1f} s")
+        probe = ranks[0]["compile_probe"]
+        log("dp compiled all-reduce probe (dynamo, the cudagraphs backend, gloo, rank 0): "
+            f"{probe}")
+        _ring_report(ranks, card)
         line = [ln[ln.index("[world]"):] for ln in nccl["out"].splitlines() if "[world]" in ln]
         dirs = sorted(p.name for p in Path(base, "nccl").iterdir()) if nccl["rc"] == 0 else []
         log(f"dp torchrun --nproc_per_node=1 (NCCL): rc {nccl['rc']} in {nccl['s']:.1f} s "
@@ -4852,6 +4945,23 @@ def phase_dp(card: str) -> dict:
             raise AssertionError(f"torchrun over NCCL failed:\n{nccl['out'][-3000:]}\n"
                                  f"{nccl['err'][-3000:]}")
     return {"launches": launches}
+
+
+def _ring_report(ranks: list, card: str) -> None:
+    """The ranks' fp32 check of ring_attention and their ring timings."""
+    shares = [r["ring_fp32"] for r in ranks]
+    comm = [r["ring_comm"] for r in ranks]
+    log(f"dp ring_attention fp32 {list(RING_SHAPE)} ({RING_VALID} valid) on a ring of "
+        f"{DP_WORLD} vs dense attention in float64: worst element a rank, as a share of its "
+        f"limit (output {RING_FWD_TOL:g}; gradients atol {RING_GRAD_ATOL:g}, rtol "
+        f"{RING_GRAD_RTOL:g}): {shares}")
+    log(f"dp ring comms: a hop of k, v and valid (bf16 [2, {RING_SHAPE[0]}, "
+        f"{RING_SHAPE[1] // DP_WORLD}, {HEADS}, {HEAD_DIM}]) "
+        f"{[round(c['hop_ms'], 3) for c in comm]} ms a rank, the output all-gather "
+        f"{[round(c['gather_ms'], 3) for c in comm]} ms (CUDA events, host staging included, "
+        f"median of {RING_HOP_REPS}) on {card}")
+    if any(v > 1.0 for sh in shares for v in sh.values()):
+        raise AssertionError(f"ring_attention disagrees with float64 dense attention: {shares}")
 
 
 def _dp_check(name: str, ranks: list, base: str, card: str, launches: dict, one: dict) -> dict:
@@ -4913,9 +5023,11 @@ def _dp_check(name: str, ranks: list, base: str, card: str, launches: dict, one:
         + (f"{worst:.3g} of their largest magnitude" if one["stats"] else "(none)")
         + f"; level-1 masks ({n} prunable) = this process's pruning of the world's level-0 "
         f"weights: {same}")
+    reduce = ("no gradient all-reduce (one data row)" if world[0]["reduce_ms"] is None else
+              f"gradient all-reduce {world[0]['reduce_ms']:.3f} / {world[1]['reduce_ms']:.3f} "
+              "ms of it")
     log(f"dp {name} step: world of {DP_WORLD} {world[0]['step_ms']:.3f} / "
-        f"{world[1]['step_ms']:.3f} ms a rank ({world[0]['rows']} rows each), gradient "
-        f"all-reduce {world[0]['reduce_ms']:.3f} / {world[1]['reduce_ms']:.3f} ms of it; one "
+        f"{world[1]['step_ms']:.3f} ms a rank ({world[0]['rows']} rows each), {reduce}; one "
         f"process {one['step_ms']:.3f} ms ({one['rows']} rows) (CUDA events, median of "
         f"{DP_STEP_REPS}, host work included) on {card}")
     if bad:
@@ -4928,7 +5040,7 @@ def _dp_model(name: str):
     from turboprune_tpu_torch.models import create_model
 
     config, overrides = DP_CONFIGS[name]
-    cfg = compose(config, overrides)
+    cfg = compose(config, overrides + DP_ONE_OVERRIDES.get(name, []))
     return create_model(cfg.model_params.model_name, num_classes=cfg.dataset_params.num_classes,
                         dataset_name=cfg.dataset_params.dataset_name,
                         attention_impl=cfg.model_params.attention_impl,

@@ -26,8 +26,9 @@ Without a world: the loaders' shards against the JAX package's (the .tpk
 loader's strided ``make_shard``, the ImageFolder loader's spans and
 stream against grain's ``IndexSampler`` with ``ShardOptions``) at worlds
 of 2 and 3, with the eval length the same on every rank; a world of one,
-where every function is a no-op and the step is today's bit for bit; and
-the refusals of ``initialize_distributed`` and ``create_mesh``.
+where every function is a no-op and the step is today's bit for bit; the
+(data, model) grid of ``model_parallelism`` and its groups; and the
+refusals of ``initialize_distributed`` and ``create_mesh``.
 """
 
 import copy
@@ -392,3 +393,32 @@ def test_num_devices_unequal_to_the_world_raises():
     with pytest.raises(ValueError, match="refusing to silently under-provision"):
         parallel.create_mesh(num_devices=4)
     assert parallel.create_mesh(num_devices=1).data_size == 1
+
+
+def test_model_parallelism_lays_the_world_out_as_jax_does(monkeypatch):
+    """A world of 8 with model_parallelism 2 is JAX's ``arange(8).reshape(4,
+    2)``: rank 5 sits at data row 2, model column 1; its data group is its
+    column, its ring its row. Every rank creates every group in the same
+    order (torch's rule: the columns, then the rows). A world that does not
+    divide raises, as JAX's ``create_mesh``."""
+    from turboprune_tpu_torch.parallel import mesh as mesh_module
+
+    made = []
+    monkeypatch.setattr(mesh_module, "process_count", lambda: 8)
+    monkeypatch.setattr(mesh_module, "process_index", lambda: 5)
+    monkeypatch.setattr(mesh_module.dist, "new_group", lambda ranks: made.append(ranks) or ranks)
+    mesh = parallel.create_mesh(model_parallelism=2)
+    assert mesh.grid.tolist() == np.arange(8).reshape(4, 2).tolist()
+    assert (mesh.data_size, mesh.model_size, mesh.data_rank, mesh.model_rank) == (4, 2, 2, 1)
+    assert made == [[0, 2, 4, 6], [1, 3, 5, 7], [0, 1], [2, 3], [4, 5], [6, 7]]
+    assert mesh.data_group == [1, 3, 5, 7] and mesh.model_group == [4, 5]
+    made.clear()
+    ring = parallel.create_mesh(model_parallelism=8)  # one data row: no data group
+    assert made == [list(range(8))]
+    assert (ring.data_size, ring.model_size, ring.data_group, ring.model_group) == (
+        1, 8, None, list(range(8)))
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="1 devices not divisible by model_parallelism=2"):
+        parallel.create_mesh(model_parallelism=2)
+    one = parallel.create_mesh()
+    assert (one.model_size, one.model_rank, one.model_group) == (1, 0, None)

@@ -1,8 +1,9 @@
-"""One rank of a gloo world for the port's data-parallel tests
-(tests/test_torch_parallel.py, tests/test_torch_dp.py), the counterpart of
+"""One rank of a gloo world for the port's multi-process tests
+(tests/test_torch_parallel.py, tests/test_torch_dp.py: worlds of 2;
+tests/test_torch_ring.py: a world of 4), the counterpart of
 tests/mp_worker.py.
 
-    RANK=r WORLD_SIZE=2 LOCAL_RANK=r MASTER_ADDR=localhost MASTER_PORT=p \\
+    RANK=r WORLD_SIZE=W LOCAL_RANK=r MASTER_ADDR=localhost MASTER_PORT=p \\
         python tests/torch_port_dp_worker.py <suite> <dir>
 
 joins the world through ``parallel.initialize_distributed`` (torchrun's
@@ -377,9 +378,162 @@ def refusals(root: Path, rank: int) -> dict:
     }
 
 
+# ------------------------------------------------------------- suite "ring"
+# A world of 4: ring attention on rings of 1, 2 and 4, and the (data = 2,
+# model = 2) grid.
+
+RING_SIZES = (1, 2, 4)
+# The tiny ViT of tests/test_ring.py: 8x8 images, patch 4, so 4 patches and
+# the class token, 5 tokens (padded to 6 on a ring of 2, 8 on a ring of 4).
+TINY_RING = dict(num_classes=10, patch_size=4, embed_dim=16, depth=2, num_heads=2,
+                 image_size=8)
+# cifar10_imp with DeiT-Tiny/16 at its published width, ring attention on
+# a ring of 2: 32x32 images, 4 patches and the class token padded to 6; a
+# global batch of 8 (4 a data row), 2 steps a level, fp32.
+RING_DRIVER_OVERRIDES = [
+    "model_params.model_name=deit_tiny_patch16_224",
+    "model_params.attention_impl=ring",
+    "experiment_params.model_parallelism=2",
+    "dataset_params.dataloader_type=synthetic",
+    "dataset_params.total_batch_size=8",
+    "dataset_params.synthetic_num_train=16",
+    "dataset_params.synthetic_num_test=8",
+    "experiment_params.epochs_per_level=1",
+    "experiment_params.max_steps_per_epoch=2",
+    "experiment_params.training_precision=float32",
+    "pruning_params.target_sparsity=0.2",
+]
+
+
+def tiny_ring_vit(mesh, dtype=torch.float32, attention_impl="ring"):
+    from turboprune_tpu_torch.models.vit import VisionTransformer
+
+    return VisionTransformer(**TINY_RING, dtype=dtype, attention_impl=attention_impl, mesh=mesh)
+
+
+def ring_kernel(root: Path, rank: int) -> dict:
+    """``ring_attention``'s output and q/k/v gradients (under the same
+    cotangent on every rank) at each ring size, on each case of inputs."""
+    from turboprune_tpu_torch.parallel import ring_attention
+
+    inp = torch.load(root / "inputs.pt", weights_only=False)["attn"]
+    out = {}
+    for n in RING_SIZES:
+        mesh = create_mesh(model_parallelism=n)
+        for case, t in inp.items():
+            q, k, v = (t[x].clone().requires_grad_() for x in "qkv")
+            o = ring_attention(q, k, v, t["valid"], mesh)
+            (o * t["do"]).sum().backward()
+            out[n, case] = {"out": o.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+        if n == 1:
+            t = inp["full"]
+            with torch.no_grad():
+                out[n, "bf16"] = ring_attention(*(t[x].bfloat16() for x in "qkv"), t["valid"],
+                                                mesh)
+    return out
+
+
+def ring_vit(root: Path, rank: int) -> dict:
+    """The tiny ViT's logits with ring attention at each ring size in fp32,
+    and on a ring of one in bf16."""
+    inp = torch.load(root / "inputs.pt", weights_only=False)
+    out = {}
+    for n in RING_SIZES:
+        mesh = create_mesh(model_parallelism=n)
+        for dtype in (torch.float32, torch.bfloat16) if n == 1 else (torch.float32,):
+            model = tiny_ring_vit(mesh, dtype)
+            model.load_state_dict(inp["vit"])
+            with torch.no_grad():
+                out[n, str(dtype)] = model(inp["images"])
+    return out
+
+
+def ring_step(root: Path, rank: int) -> dict:
+    """One train step of the tiny ViT on the (data = 2, model = 2) grid:
+    the parameters after it, the averaged gradients and the global loss."""
+    from turboprune_tpu_torch.train import (
+        create_optimizer,
+        create_schedule,
+        create_train_state,
+        make_train_step,
+    )
+
+    inp = torch.load(root / "inputs.pt", weights_only=False)
+    mesh = create_mesh(model_parallelism=2)
+    model = tiny_ring_vit(mesh)
+    model.load_state_dict(inp["vit"])
+    state = create_train_state(model, create_optimizer("SGD", momentum=0.9, weight_decay=5e-4),
+                               inp["masks"])
+    step = make_train_step(create_schedule("TriangularSchedule", 0.2, 1, 3), mesh=mesh)
+    sums = all_reduce_sums(step(state, shard_batch((inp["x"], inp["y"]), mesh)), mesh)
+    return {"state": _state(model), "loss_sum": sums["loss_sum"], "count": sums["count"],
+            "grads": {k: p.grad.clone() for k, p in model.named_parameters()},
+            "place": (mesh.data_rank, mesh.model_rank)}
+
+
+def ring_driver(root: Path, rank: int) -> dict:
+    """cifar10_imp with DeiT-Tiny and ring attention on a ring of 2, 2
+    levels through run_experiment_torch.main."""
+    import run_experiment_torch
+
+    seen = {}
+
+    class Recorded(PruningHarness):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            seen["harness"] = self
+
+    base = root / "ring_driver"
+    with mock.patch.object(driver, "PruningHarness", Recorded):
+        rc = run_experiment_torch.main(["--device", "cpu", "--config-name=cifar10_imp",
+                                        *RING_DRIVER_OVERRIDES,
+                                        f"experiment_params.base_dir={base}"])
+    h = seen["harness"]
+    return {"rc": rc, "masks": dict(h.state.masks), "dirs": sorted(p.name for p in base.iterdir()),
+            "grid": h.mesh.grid.tolist()}
+
+
+def ring_loader(root: Path, rank: int) -> dict:
+    """An ImageFolder run's host-scope train loader on a ring of 2: its
+    shard, and the scoring batch the driver gathers over the data group
+    (this rank's rows, and the gathered batch)."""
+    cfg = compose("imagenet_imp", folder_overrides(root) + [
+        "model_params.model_name=deit_tiny_patch16_224", "model_params.attention_impl=ring",
+        "experiment_params.model_parallelism=2"])
+    h = PruningHarness(cfg, ("", str(root / "ring_loader")), device="cpu")
+    own = []
+    gather = driver._all_gather_rows
+
+    def recorded(t, mesh):
+        own.append(t)
+        return gather(t, mesh)
+
+    with mock.patch.object(driver, "_all_gather_rows", recorded):
+        batch = driver._first_train_batch(h)
+    loader = h.loaders.train_loader
+    out = {"shard": loader.shard, "span": loader.span, "own": own, "batch": batch}
+    h.loaders.close()
+    return out
+
+
+def ring_refusals(root: Path, rank: int) -> dict:
+    def harness(extra):
+        cfg = compose("cifar10_imp", RING_DRIVER_OVERRIDES + extra
+                      + [f"experiment_params.base_dir={root}"])
+        PruningHarness(cfg, ("", str(root / "refused")), device="cpu")
+
+    return {
+        "indivisible": _error(create_mesh, model_parallelism=3),
+        # data = 1, model = 4: one data row, four processes.
+        "compile": _error(harness, ["experiment_params.model_parallelism=4",
+                                    "model_params.use_compile=true"]),
+    }
+
+
 SUITES = {
     "parallel": [broadcast, equality, widths, checkpoints, jax_step],
     "dp": [run_driver, dropout, optimizers, snip, plan, mid_level, refusals],
+    "ring": [ring_kernel, ring_vit, ring_step, ring_driver, ring_loader, ring_refusals],
 }
 
 

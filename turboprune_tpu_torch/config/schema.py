@@ -289,8 +289,8 @@ class ExperimentConfig:
     num_devices: int = 0
     # Size of the mesh `model` axis (sequence/tensor parallelism); devices
     # are laid out (data = n/model_parallelism, model). 1 = pure DP, the
-    # reference's only strategy (SURVEY.md §2.3); > 1 is ROADMAP item A13b
-    # in the port.
+    # reference's only strategy (SURVEY.md §2.3); > 1 shards each sequence
+    # over a ring of model_parallelism processes (attention_impl: ring).
     model_parallelism: int = 1
     # Cap on train/eval steps per epoch (0 = full epoch) — for smoke tests.
     max_steps_per_epoch: int = 0

@@ -14,7 +14,7 @@
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -24,8 +24,13 @@ from .native import TpkImageLoader, TpkLoaders
 from .synthetic import SyntheticLoaders, synthetic_arrays
 
 
-def create_loaders(cfg, device: str | torch.device = "cuda") -> Any:
-    """Loader pair (``.train_loader``, ``.test_loader``) on ``device``."""
+def create_loaders(cfg, device: str | torch.device = "cuda",
+                   shard: Optional[tuple[int, int]] = None) -> Any:
+    """Loader pair (``.train_loader``, ``.test_loader``) on ``device``.
+    ``shard``: (index, count) of the part of the data a host-scope loader
+    (.tpk, ImageFolder) reads; the mesh's (data rank, data size), so the
+    ranks of one ring read the same rows. None: this process's place in
+    the world."""
     dp = cfg.dataset_params
     if dp.dataloader_type == "synthetic":
         return SyntheticLoaders(
@@ -64,6 +69,7 @@ def create_loaders(cfg, device: str | torch.device = "cuda") -> Any:
             val_path=dp.tpk_val_path,
             auto_pack=dp.tpk_auto_pack,
             device=device,
+            shard=shard,
         )
     if dp.dataloader_type == "grain":
         return ImageNetLoaders(
@@ -74,6 +80,7 @@ def create_loaders(cfg, device: str | torch.device = "cuda") -> Any:
             image_size=dp.image_size,
             prefetch_depth=dp.prefetch_depth,
             device=device,
+            shard=shard,
         )
     raise ValueError(f"Unknown dataloader_type: {dp.dataloader_type}")
 

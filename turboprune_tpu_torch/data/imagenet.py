@@ -262,7 +262,9 @@ class ImageFolderLoader:
     """One split of an ImageFolder as the JAX package's ``GrainImageLoader``
     reads it (see the module docstring), this process's shard of it.
 
-    ``batch_scope = "host"``: a batch is this process's. ``resumable_epochs
+    ``batch_scope = "host"``: a batch is this process's (``shard`` =
+    (index, count), default this process's place in the world; the harness
+    passes the mesh's (data rank, data size)). ``resumable_epochs
     = False``: the epoch counter does not fix the data order; the stream
     position does (``get_stream_state``). ``__iter__`` and
     ``iter_chunks(chunk, max_batches)`` are ``TpkImageLoader``'s contract,
@@ -282,16 +284,17 @@ class ImageFolderLoader:
         image_size: int = IMAGE_SIZE,
         device: str | torch.device = "cuda",
         mp_context: str = "fork",
+        shard: Optional[tuple[int, int]] = None,
     ):
         if not 0 <= seed < 2**32:
             raise ValueError(f"seed must be a 32-bit unsigned integer, got {seed}")
         self.source = ImageFolderSource(split_dir)
-        count = process_count()
+        index, count = shard or (process_index(), process_count())
         if total_batch_size % count:
             raise ValueError(
                 f"total_batch_size={total_batch_size} not divisible by the "
                 f"{count} processes of the world")
-        self.shard = (process_index(), count)
+        self.shard = (index, count)
         n = len(self.source)
         self.span = shard_span(n, *self.shard, drop_remainder=train)
         # The largest shard's records: what the eval length is counted on.
@@ -462,10 +465,11 @@ class ImageNetLoaders:
         image_size: int = IMAGE_SIZE,
         prefetch_depth: int = 4,
         device: str | torch.device = "cuda",
+        shard: Optional[tuple[int, int]] = None,
     ):
         root = Path(data_root_dir)
         common = dict(num_workers=num_workers, seed=seed, image_size=image_size,
-                      prefetch_depth=prefetch_depth, device=device)
+                      prefetch_depth=prefetch_depth, device=device, shard=shard)
         self.train_loader = ImageFolderLoader(str(root / "train"), total_batch_size,
                                               train=True, **common)
         self.test_loader = ImageFolderLoader(str(root / "val"), total_batch_size,

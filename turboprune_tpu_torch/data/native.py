@@ -336,7 +336,9 @@ class TpkImageLoader:
     batches of ``total_batch_size / W`` (which must divide); the train
     length is the steps every rank can take, the eval length the largest
     shard's batches, the shorter shards padded, so the ranks' steps line
-    up. Batches are decoded into reusable host buffers
+    up. ``shard`` = (index, count) replaces (p, W): the mesh's (data rank,
+    data size), so the ranks of one ring read the same rows. Batches are
+    decoded into reusable host buffers
     (pinned for a CUDA device) and reach ``device`` through the prefetch
     engine (``pipeline.stream_batches``); ``last_pipeline_stats`` holds the
     engine's stage times of the latest epoch."""
@@ -354,9 +356,10 @@ class TpkImageLoader:
         prefetch_depth: int = 4,
         decode_workers: int = 2,
         device: str | torch.device = "cuda",
+        shard: Optional[tuple[int, int]] = None,
     ):
         self.file = TpkFile(path)
-        nproc = process_count()
+        index, nproc = shard or (process_index(), process_count())
         if total_batch_size % nproc:
             raise ValueError(
                 f"total_batch_size={total_batch_size} not divisible by the "
@@ -372,7 +375,7 @@ class TpkImageLoader:
         self.device = torch.device(device)
         self.epoch = 0
         self.last_pipeline_stats: Optional[dict] = None
-        self._shard = make_shard(self.file.num_samples, process_index(), nproc)
+        self._shard = make_shard(self.file.num_samples, index, nproc)
         self.buffers = HostBuffers(
             (self.batch_size, *self.file.sample_shape(image_size)),
             pin=self.device.type == "cuda")
@@ -470,6 +473,7 @@ class TpkLoaders:
         val_path: str = "",
         auto_pack: bool = False,
         device: str | torch.device = "cuda",
+        shard: Optional[tuple[int, int]] = None,
     ):
         root = Path(data_root_dir)
         train_tpk = Path(train_path) if train_path else root / "train.tpk"
@@ -486,7 +490,7 @@ class TpkLoaders:
                 )
         common = dict(total_batch_size=total_batch_size, image_size=image_size, seed=seed,
                       nthreads=nthreads, prefetch_depth=prefetch_depth,
-                      decode_workers=decode_workers, device=device)
+                      decode_workers=decode_workers, device=device, shard=shard)
         self.train_loader = TpkImageLoader(train_tpk, train=True, **common)
         self.test_loader = TpkImageLoader(val_tpk, train=False, **common)
         self.num_classes = num_classes

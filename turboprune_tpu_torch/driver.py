@@ -60,19 +60,22 @@ def _first_train_batch(harness: PruningHarness) -> tuple:
     JAX package, taking it starts an epoch of the loader (its epoch counter
     moves on), so the epochs trained after the prune see the same
     augmentation and shuffle streams as the JAX package's. A host-scope
-    loader's rank holds only its rows: they are all-gathered, rank 0's
-    first, so every rank scores the same batch and derives the same masks."""
+    loader's rank holds only its data row's rows: they are all-gathered
+    over the data group, data row 0's first (the ranks of a ring hold the
+    same rows and gather the same), so every rank scores the same batch
+    and derives the same masks."""
     loader = harness.loaders.train_loader
+    mesh = harness.mesh
     for batch in loader:
-        if getattr(loader, "batch_scope", "global") == "host" and process_count() > 1:
-            batch = tuple(_all_gather_rows(t) for t in batch)
+        if getattr(loader, "batch_scope", "global") == "host" and mesh.data_size > 1:
+            batch = tuple(_all_gather_rows(t, mesh) for t in batch)
         return batch
     raise RuntimeError("empty train loader")
 
 
-def _all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    parts = [torch.empty_like(t) for _ in range(process_count())]
-    torch.distributed.all_gather(parts, t.contiguous())
+def _all_gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    parts = [torch.empty_like(t) for _ in range(mesh.data_size)]
+    torch.distributed.all_gather(parts, t.contiguous(), group=mesh.data_group)
     return torch.cat(parts)
 
 

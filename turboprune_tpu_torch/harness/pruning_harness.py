@@ -42,20 +42,25 @@ weights (``train.eval_weights``). With ``experiment_params.use_wandb``
 every epoch row also goes to wandb (``utils/wandb_logging.py``).
 
 Data parallel (a world of W processes launched by ``torchrun``, one per
-device, ``parallel/``): the harness lays the world out as a mesh
-(``experiment_params.num_devices`` 0 or W, ``model_parallelism`` 1),
-broadcasts rank 0's initial weights, gives the BatchNorm layers the data
-group (global-batch statistics), and steps each rank on its rows of the
-global batch with the gradients averaged over the group. Epoch and
-evaluation sums are all-reduced, so every rank logs the global numbers;
+device, ``parallel/``): the harness lays the world out as a (data =
+W / M, model = M) mesh (``experiment_params.num_devices`` 0 or W,
+``model_parallelism`` M), broadcasts rank 0's initial weights, gives the
+BatchNorm layers the data group (global-batch statistics), and steps each
+rank on its data row's rows of the global batch with the gradients
+averaged over the data group. With M > 1 (``attention_impl: ring``) the M
+ranks of a model row hold the same rows and share each sequence: the
+model's ring attention shards the tokens over them (``parallel/ring.py``),
+and everything else runs replicated on them; a host-scope loader shards by
+data row. Epoch and evaluation sums are all-reduced over the data group,
+so every rank logs the global numbers;
 the CSVs, wandb, the console and every checkpoint are written by the
 primary, except each rank's own train-stream position in the mid-level
 slot. Before a plan re-instantiates the model, every rank asserts that it
 derived the same widths.
 
 Options of the JAX harness that later slices port raise here, naming the
-ROADMAP.md item: the model axis (13b), the profiler trace (17), and the
-compiled step in a world of more than one process (13c).
+ROADMAP.md item: the profiler trace (17) and the compiled step in a world
+of more than one process (13c).
 """
 
 from __future__ import annotations
@@ -141,7 +146,6 @@ def refuse_unported(cfg: MainConfig) -> None:
     """Raise on the options whose slice of the port is still to come."""
     ep = cfg.experiment_params
     unported = {
-        "experiment_params.model_parallelism > 1": (ep.model_parallelism > 1, "item 13b"),
         "experiment_params.profile_dir": (bool(ep.profile_dir), "item 17"),
     }
     for knob, (on, item) in unported.items():
@@ -174,12 +178,12 @@ class PruningHarness:
                 f"total_batch_size={dp.total_batch_size} not divisible by the data "
                 f"axis's {self.mesh.data_size} processes — adjust total_batch_size "
                 "or num_devices")
-        if cfg.model_params.use_compile and self.mesh.data_size > 1:
+        if cfg.model_params.use_compile and process_count() > 1:
             raise NotImplementedError(
                 "model_params.use_compile in a world of more than one process is "
                 "not yet ported to turboprune_tpu_torch (ROADMAP.md queue A, "
-                "item 13c): the BatchNorm all-reduce would run inside the "
-                "compiled graphs")
+                "item 13c): the BatchNorm all-reduce and ring attention's "
+                "point-to-point hops would run inside the compiled graphs")
         self.compute_dtype = PRECISION_DTYPES[ep.training_precision]
         self._make_optimizer = create_optimizer(
             op.optimizer_name, momentum=op.momentum, weight_decay=op.weight_decay
@@ -193,6 +197,7 @@ class PruningHarness:
             compute_dtype=self.compute_dtype,
             attention_impl=cfg.model_params.attention_impl,
             image_size=dp.image_size,
+            mesh=self.mesh,
         )
         model.init_weights(torch.Generator().manual_seed(ep.seed))
         stuff = ep.resume_experiment_stuff
@@ -207,7 +212,8 @@ class PruningHarness:
         # BatchNorm statistics are taken over.
         broadcast_module(self.model, self.mesh)
         set_batchnorm_group(self.model, self.mesh)
-        self.loaders = create_loaders(cfg, self.device)
+        self.loaders = create_loaders(cfg, self.device,
+                                      shard=(self.mesh.data_rank, self.mesh.data_size))
         self.ckpts = ExperimentCheckpoints(self.expt_dir)
         # The mid-level slot's identity: a slot stamped with another config
         # is never restored.
@@ -406,14 +412,20 @@ class PruningHarness:
     # ----------------------------------------------------- plan execution
     def _small_model(self, width_overrides, nm_overrides=None):
         """The architecture at compacted widths and/or with gathered N:M
-        hooks, on the device (weights come from the state it takes)."""
+        hooks, on the device (weights come from the state it takes). Ring
+        attention becomes its param-identical dense attention, as in the
+        JAX package and in serving: the small model runs replicated on the
+        ranks of a ring, not sequence-sharded."""
         cfg = self.cfg
+        attention_impl = cfg.model_params.attention_impl
+        if attention_impl == "ring":
+            attention_impl = "dense"
         return create_model(
             cfg.model_params.model_name,
             num_classes=cfg.dataset_params.num_classes,
             dataset_name=cfg.dataset_params.dataset_name,
             compute_dtype=self.compute_dtype,
-            attention_impl=cfg.model_params.attention_impl,
+            attention_impl=attention_impl,
             image_size=cfg.dataset_params.image_size,
             width_overrides=width_overrides,
             nm_overrides=nm_overrides,

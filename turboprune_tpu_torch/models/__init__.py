@@ -56,11 +56,14 @@ def create_model(
     image_size: int = 224,
     width_overrides: Any = None,
     nm_overrides: Any = None,
+    mesh: Any = None,
 ) -> nn.Module:
     """Build a registered model. CIFAR datasets get the CIFAR stem.
-    ``attention_impl`` and ``image_size`` are the DeiTs' (``image_size``
-    fixes the patch grid, which flax infers from the first batch instead);
-    a CNN takes neither and refuses an attention other than dense."""
+    ``attention_impl``, ``image_size`` and ``mesh`` are the DeiTs'
+    (``image_size`` fixes the patch grid, which flax infers from the first
+    batch instead; ``attention_impl="ring"`` needs the ``parallel.Mesh``
+    whose model axis it shards the tokens over); a CNN takes none of them
+    and refuses an attention other than dense."""
     if model_name not in MODEL_REGISTRY:
         raise ValueError(
             f"Model {model_name!r} not in registry: {sorted(MODEL_REGISTRY)}"
@@ -68,7 +71,7 @@ def create_model(
     cifar_stem = dataset_name.lower() in ("cifar10", "cifar100")
     kwargs = {}
     if model_name.startswith("deit"):
-        kwargs = {"attention_impl": attention_impl, "image_size": image_size}
+        kwargs = {"attention_impl": attention_impl, "image_size": image_size, "mesh": mesh}
     elif attention_impl != "dense":
         raise ValueError(
             f"attention_impl={attention_impl!r} requires a ViT model "

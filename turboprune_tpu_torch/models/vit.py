@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash import flash_attention
+from ..parallel.ring import ring_attention
 from .dropout import dropout, forward_noise
 
 ATTENTION_IMPLS = ("dense", "ring", "flash")
@@ -81,15 +82,25 @@ class SelfAttention(nn.Module):
     compute dtype); ``impl="flash"`` mirrors ``FlashSelfAttention``: tokens
     padded to a multiple of ``block``, ``[B*H, S, hd]`` into
     ``ops.flash.flash_attention`` with the validity row of the true length,
-    padded query rows sliced away."""
+    padded query rows sliced away; ``impl="ring"`` mirrors
+    ``RingSelfAttention``: tokens padded to a multiple of the ring's size
+    (``mesh.model_size``), ``parallel.ring.ring_attention`` over the
+    mesh's model axis, padded query rows sliced away."""
 
-    def __init__(self, dim: int, num_heads: int, dtype, impl: str, block: int = 128):
+    def __init__(self, dim: int, num_heads: int, dtype, impl: str, block: int = 128,
+                 mesh: Optional[Any] = None):
         super().__init__()
-        if impl not in ("dense", "flash"):
+        if impl not in ATTENTION_IMPLS:
             raise ValueError(f"unknown attention impl {impl!r}")
+        if impl == "ring" and mesh is None:
+            raise ValueError(
+                "attention_impl='ring' needs a mesh (create_model(..., "
+                "mesh=...) — the harness passes its own)"
+            )
         self.num_heads = num_heads
         self.impl = impl
         self.block = block
+        self.mesh = mesh
         self.query = Dense(dim, dim, dtype)
         self.key = Dense(dim, dim, dtype)
         self.value = Dense(dim, dim, dtype)
@@ -106,6 +117,12 @@ class SelfAttention(nn.Module):
             q = q / math.sqrt(hd)
             w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
             out = torch.einsum("bhqk,bkhd->bqhd", w, v)
+        elif self.impl == "ring":
+            pad = (-s) % self.mesh.model_size
+            if pad:
+                q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+            valid = torch.arange(s + pad, device=x.device) < s
+            out = ring_attention(q, k, v, valid, self.mesh)[:, :s]
         else:
             pad = (-s) % self.block
             if pad:
@@ -157,12 +174,13 @@ class EncoderBlock(nn.Module):
         attention_impl: str = "dense",
         mlp_hidden: Optional[int] = None,
         nm: Optional[dict] = None,
+        mesh: Optional[Any] = None,
     ):
         # No attention dropout: the JAX model never sets it (the
         # reference's DeiT configs use attn_drop=0). ``mlp_hidden``: a
         # compacted MLP width; ``nm``: the block's N:M hooks keyed
         # "attn/query" ... "mlp/fc2" (projection hooks under dense
-        # attention only).
+        # attention only); ``mesh``: ring attention's (parallel.Mesh).
         super().__init__()
         nm = nm or {}
         attn_nm = {k.split("/")[1]: v for k, v in nm.items() if k.startswith("attn/")}
@@ -174,7 +192,7 @@ class EncoderBlock(nn.Module):
 
             self.attn = NMSelfAttention(dim, num_heads, dtype, attn_nm)
         else:
-            self.attn = SelfAttention(dim, num_heads, dtype, attention_impl)
+            self.attn = SelfAttention(dim, num_heads, dtype, attention_impl, mesh=mesh)
         self.norm2 = LayerNorm(dim)
         self.mlp = MlpBlock(dim, mlp_hidden or int(dim * mlp_ratio), dropout_rate, dtype,
                             nm.get("mlp/fc1"), nm.get("mlp/fc2"))
@@ -186,8 +204,9 @@ class EncoderBlock(nn.Module):
 
 class VisionTransformer(nn.Module):
     """DeiT. ``image_size`` fixes the patch count (flax infers it at init);
-    ``attention_impl="ring"`` runs the param-identical dense attention,
-    since the port serves on one device, as the JAX engine does.
+    ``attention_impl="ring"`` shards the tokens over ``mesh``'s model axis
+    (``parallel/ring.py``) with the params of the dense attention, and
+    needs the mesh (the harness passes its own).
     ``width_overrides`` ("block{i}/mlp/fc1" -> kept hidden width) and
     ``nm_overrides`` ("block{i}/mlp/fc1" | "block{i}/mlp/fc2" | "head" |
     "head_dist", and "block{i}/attn/{query,key,value,out}" under dense
@@ -210,14 +229,13 @@ class VisionTransformer(nn.Module):
         in_chans: int = 3,
         width_overrides: Optional[Any] = None,
         nm_overrides: Optional[Any] = None,
+        mesh: Optional[Any] = None,
     ):
         super().__init__()
         ov = dict(width_overrides or {})
         nv = dict(nm_overrides or {})
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl={attention_impl!r} not in {ATTENTION_IMPLS}")
-        if attention_impl == "ring":
-            attention_impl = "dense"
         if image_size % patch_size:
             raise ValueError(f"image_size {image_size} % patch_size {patch_size} != 0")
         self.num_classes = num_classes
@@ -247,6 +265,7 @@ class VisionTransformer(nn.Module):
                     mlp_hidden=ov.get(f"block{i}/mlp/fc1"),
                     nm={k[len(f"block{i}/"):]: v for k, v in nv.items()
                         if k.startswith(f"block{i}/")},
+                    mesh=mesh,
                 ),
             )
         self.norm = LayerNorm(embed_dim)

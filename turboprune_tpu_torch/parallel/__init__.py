@@ -1,8 +1,8 @@
-"""Data parallelism across processes (port of the data axis of
-``turboprune_tpu/parallel/``): the launched world, its mesh of ranks, the
-gradient and metric all-reduces, and the cross-rank agreement checks.
-Sequence parallelism on the ``model`` axis (JAX ``parallel/ring.py``) is
-ROADMAP.md queue A, item 13b."""
+"""Parallelism across processes (port of ``turboprune_tpu/parallel/``):
+the launched world, its (data, model) mesh of ranks, the gradient and
+metric all-reduces over the data axis, ring attention over the model axis
+(sequence parallelism, ``ring.py``), and the cross-rank agreement
+checks."""
 
 from .mesh import (
     Mesh,
@@ -29,6 +29,7 @@ from .multihost import (
     tree_fingerprint,
     tree_moments,
 )
+from .ring import ring_attention, ring_shift
 
 __all__ = [
     "Mesh",
@@ -46,6 +47,8 @@ __all__ = [
     "local_batchnorm",
     "process_count",
     "process_index",
+    "ring_attention",
+    "ring_shift",
     "say",
     "set_batchnorm_group",
     "shard_batch",

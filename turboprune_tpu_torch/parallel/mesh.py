@@ -1,23 +1,28 @@
-"""The data axis of the world (port of ``turboprune_tpu/parallel/mesh.py``).
+"""The world as a (data, model) mesh of ranks (port of
+``turboprune_tpu/parallel/mesh.py``).
 
 The JAX package jits one SPMD step over a ``Mesh`` of every device: the
 state replicated, the batch sharded on ``data``, and XLA inserts the
 gradient all-reduce and computes BatchNorm's statistics over the global
-batch. The port follows PyTorch's idiom of one process per device:
-``create_mesh`` lays the launched world out as a (data, model) grid of
-ranks, each rank keeps its rows of the global batch (``shard_batch``),
-``average_gradients`` runs once after ``backward()`` (the counterpart of
-the psum), ``all_reduce_sums`` adds up an epoch's metric sums, and the
-BatchNorm layers take their training statistics over the data group
-(``models/resnet.py::FlaxBatchNorm2d``, given the group by
-``set_batchnorm_group``).
+batch; ring attention shards the sequence over ``model``
+(``parallel/ring.py``). The port follows PyTorch's idiom of one process
+per device: ``create_mesh`` lays the launched world out as a (data, model)
+grid of ranks, each rank keeps its data row's part of the global batch
+(``shard_batch``), ``average_gradients`` runs once after ``backward()``
+over the data group (the counterpart of the psum), ``all_reduce_sums``
+adds up an epoch's metric sums, and the BatchNorm layers take their
+training statistics over the data group (``models/resnet.py::FlaxBatchNorm2d``,
+given the group by ``set_batchnorm_group``). The ranks of one model row
+(a ring) hold the same rows and run everything outside attention
+replicated, as XLA runs it outside ``shard_map``: their activations,
+gradients and sums are identical, so the data group alone reduces them.
 
 Why not DDP's Reducer: the step takes its gradient through
 ``functional_call`` on ``w * m`` (``train/steps.py``), outside the module's
 own ``forward``, and the compiled step's backward is one AOTAutograd graph.
 One bucketed all-reduce after the backward needs neither hooks nor a
 wrapper module, serves the eager step and a plan's re-instantiated model
-alike, and in a world of one is not called at all.
+alike, and in a data axis of one is not called at all.
 """
 
 from __future__ import annotations
@@ -39,21 +44,34 @@ BUCKET_BYTES = 25 * 2**20
 
 @dataclass(frozen=True)
 class Mesh:
-    """The world as a (data, model) grid of ranks. ``data_group`` is the
-    process group of this rank's column of the grid (the ranks that hold
-    the other rows of its batch); None in a data axis of one."""
+    """The world as a (data, model) grid of ranks, ``grid[i, j]`` the rank
+    at data row i and model column j. ``data_group`` is the process group
+    of this rank's column (the ranks that hold the other rows of its
+    batch), None in a data axis of one; ``model_group`` is its row (the
+    ring its sequence is sharded over), None in a model axis of one."""
 
     grid: np.ndarray
     data_group: Optional[Any] = None
+    model_group: Optional[Any] = None
 
     @property
     def data_size(self) -> int:
         return self.grid.shape[0]
 
     @property
+    def model_size(self) -> int:
+        return self.grid.shape[1]
+
+    @property
     def data_rank(self) -> int:
         """This rank's row of the grid: which rows of a batch it keeps."""
         return int(np.argwhere(self.grid == process_index())[0][0])
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's column of the grid: its place on the ring, which
+        shard of the sequence it holds."""
+        return int(np.argwhere(self.grid == process_index())[0][1])
 
 
 def create_mesh(num_devices: int = 0, model_parallelism: int = 1) -> Mesh:
@@ -70,12 +88,17 @@ def create_mesh(num_devices: int = 0, model_parallelism: int = 1) -> Mesh:
         )
     if model_parallelism < 1 or n % model_parallelism:
         raise ValueError(f"{n} devices not divisible by model_parallelism={model_parallelism}")
-    if model_parallelism > 1:
-        raise NotImplementedError(
-            "the mesh's model axis (model_parallelism > 1) is not yet ported to "
-            "turboprune_tpu_torch (ROADMAP.md queue A, item 13b)")
-    grid = np.arange(n).reshape(n, 1)
-    return Mesh(grid, dist.group.WORLD if n > 1 else None)
+    grid = np.arange(n).reshape(n // model_parallelism, model_parallelism)
+    data_size, model_size = grid.shape
+    if model_size == 1:
+        return Mesh(grid, dist.group.WORLD if n > 1 else None)
+    # torch makes a group collectively: every rank creates every group, in
+    # the same order, and keeps its own column and row.
+    row, col = np.argwhere(grid == process_index())[0]
+    columns = [dist.new_group(grid[:, j].tolist()) if data_size > 1 else None
+               for j in range(model_size)]
+    rows = [dist.new_group(grid[i].tolist()) for i in range(data_size)]
+    return Mesh(grid, columns[col], rows[row])
 
 
 def shard_batch(batch: tuple, mesh: Mesh, scope: str = "global") -> tuple:
@@ -135,13 +158,14 @@ def all_reduce_sums(sums: dict, mesh: Mesh) -> dict:
 
 @torch.no_grad()
 def broadcast_module(model: nn.Module, mesh: Mesh, src: int = 0) -> None:
-    """Rank ``src``'s parameters and buffers on every rank of the data
-    group, in place: the start-of-run broadcast DDP makes (the JAX
-    package's ``replicate``)."""
-    if mesh.data_size == 1:
+    """Rank ``src``'s parameters and buffers on every rank of the world, in
+    place: the start-of-run broadcast DDP makes (the JAX package's
+    ``replicate``). Over the world, not the data group: ``src`` is a
+    global rank, and the ranks of a ring hold the same weights too."""
+    if mesh.grid.size == 1:
         return
     for t in list(model.parameters()) + list(model.buffers()):
-        dist.broadcast(t.data, src=src, group=mesh.data_group)
+        dist.broadcast(t.data, src=src)
 
 
 def set_batchnorm_group(model: nn.Module, mesh: Optional[Mesh]) -> None:

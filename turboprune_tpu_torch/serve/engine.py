@@ -550,17 +550,21 @@ class InferenceEngine:
         dtype = PRECISION_DTYPES[
             precision or cfg.experiment_params.training_precision
         ]
+        # Serving is single-device: ring (sequence-parallel) runs as its
+        # param-identical dense attention.
+        attention_impl = cfg.model_params.attention_impl
+        if attention_impl == "ring":
+            attention_impl = "dense"
 
         def factory(width_overrides=None, nm_overrides=None) -> nn.Module:
-            # Single-device serving: ring maps to the param-identical dense
-            # attention inside the model. The compacted / gathered model
-            # gets the same stem, dtype and attention wiring.
+            # The compacted / gathered model gets the same stem, dtype and
+            # attention wiring.
             return create_model(
                 cfg.model_params.model_name,
                 num_classes=dp.num_classes,
                 dataset_name=dp.dataset_name,
                 compute_dtype=dtype,
-                attention_impl=cfg.model_params.attention_impl,
+                attention_impl=attention_impl,
                 image_size=dp.image_size,
                 width_overrides=width_overrides,
                 nm_overrides=nm_overrides,
