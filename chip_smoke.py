@@ -50,6 +50,13 @@ result line):
             per-tensor distances are drow's residue (they vanish with drow
             from the unrounded o; flash_backward_plain reproduces them);
             time a step and read its device time with the profiler.
+4b. profile the train phase's DeiT through run_experiment_torch's main with
+            experiment_params.profile_dir, one level of two epochs: the
+            harness's Chrome trace of level 0's epoch 1 must exist, parse,
+            and hold K1, K2 and K3 exactly 12 x the epoch's train steps each
+            (epoch 0 or an evaluation leaking in would change K1's count);
+            print the traced epoch's device busy share and its five longest
+            device ops.
 5. resnet   conf/cifar10_imp.yaml as shipped (ResNet-18, CIFAR stem, bf16,
             batch 512) on 10,240 / 2,048 synthetic images, one epoch a
             level: two IMP levels through run_experiment_torch's main (the
@@ -90,7 +97,12 @@ result line):
             and device work against eager, one bf16 step's gradient against
             eager's. The timed steps and the compiled gradients run on the
             two runs' own harnesses, whose compiled forwards they reuse (no
-            new dynamo graph, checked), so each model compiles once.
+            new dynamo graph, checked), so each model compiles once. The
+            whole phase runs under the compile audit's ledger
+            (turboprune_tpu_torch/analysis/compile_audit.py): it prints the
+            compiles by manifest entry, the graph breaks, and the recompiles
+            with dynamo's reasons, and fails on a graph break or on a
+            compile outside the executable manifest.
 
 9. imagenet conf/imagenet_imp_tpk.yaml (ResNet-50 at 224, 1000 classes, bf16)
             fed by the native .tpk loader through the prefetch engine
@@ -275,6 +287,22 @@ TRAIN_OVERRIDES = [
 ]
 TRAIN_STEPS = 2 * (1024 // 256)       # two levels of one epoch
 EVAL_BATCHES = 2 * (512 // 256)
+# The profile phase: the same DeiT-Small/16 run with
+# experiment_params.profile_dir, one level (target sparsity 0) of two epochs
+# of PROFILE_STEPS steps; the harness traces level 0's epoch 1 alone, so the
+# trace holds exactly DEPTH x PROFILE_STEPS launches of each flash kernel
+# (an evaluation or epoch 0 leaking in would add K1 launches).
+PROFILE_STEPS = 512 // 256
+PROFILE_OVERRIDES = [
+    "model_params=mp_deit_small",
+    "model_params.attention_impl=flash",
+    "dataset_params.dataloader_type=synthetic",
+    "dataset_params.total_batch_size=256",
+    f"dataset_params.synthetic_num_train={256 * PROFILE_STEPS}",
+    "dataset_params.synthetic_num_test=256",
+    "experiment_params.epochs_per_level=2",
+    "pruning_params.target_sparsity=0.0",
+]
 # One train step's parameter gradients, flash (K1/K2/K3) vs the plain
 # dense-attention autograd, same weights, masks and batch. fp32 at batch 8:
 # per tensor ||g_flash - g_dense|| / ||g_dense|| <= 1e-3. The two differ
@@ -2581,6 +2609,81 @@ def _check_compiled_grads(tag: str, compiled: dict, eager: dict, ref: dict) -> N
         raise AssertionError(f"{tag}: the compiled bf16 gradient disagrees with eager's")
 
 
+def _trace_busy(events: list) -> tuple[float, float]:
+    """(device busy ms, window ms) of a Chrome trace's events: the union of
+    its device kernels' intervals, and the span of all its events."""
+    kernels = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                     if e.get("cat") == "kernel")
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if e.get("ph") == "X" and "ts" in e]
+    busy, end = 0.0, float("-inf")
+    for a, b in kernels:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = max(b for _, b in spans) - min(a for a, _ in spans)
+    return busy / 1e3, window / 1e3
+
+
+def phase_profile() -> dict:
+    """``experiment_params.profile_dir`` on the card: the trace of level 0's
+    epoch 1 holds each flash kernel exactly DEPTH x PROFILE_STEPS times.
+    The profiler has lost device records on this card before (``_marked_profile``):
+    a trace short of launches, never over, is taken again, at most
+    PROFILE_ATTEMPTS runs in all; each run's launches are counted from 0."""
+    import torch
+
+    import run_experiment_torch
+    from turboprune_tpu_torch.ops import flash
+
+    counters = (flash.flash_fwd_cuda, flash.flash_bwd_dq_cuda, flash.flash_bwd_dkv_cuda)
+    want = DEPTH * PROFILE_STEPS
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as base:
+            trace_dir = Path(base) / "trace"
+            # ---- the main path, with every count at 0 just before it
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            rc = run_experiment_torch.main(
+                ["--device", "cuda", "--config-name=imagenet_imp", *PROFILE_OVERRIDES,
+                 f"experiment_params.base_dir={base}/run",
+                 f"experiment_params.profile_dir={trace_dir}"])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = {c.__name__: c.launches for c in counters}
+            # ---- end of the main path
+            files = sorted(p.name for p in trace_dir.iterdir())
+            if rc != 0 or files != ["rank0.pt.trace.json"]:
+                raise AssertionError(f"profile run: rc {rc}, trace files {files}")
+            path = trace_dir / files[0]
+            size_mb = path.stat().st_size / 2**20
+            events = json.loads(path.read_text())["traceEvents"]
+        counts = {k: sum(1 for e in events if e.get("cat") == "kernel" and k in e["name"])
+                  for k in KERNEL_NAMES}
+        log(f"profile run {attempt}: run_experiment_torch main --config-name=imagenet_imp "
+            f"(DeiT-Small/16, flash, batch 256, 2 epochs of {PROFILE_STEPS} steps, "
+            f"profile_dir) -> {rc} in {wall_s:.1f} s; trace {files[0]} {size_mb:.1f} MB, "
+            f"{len(events)} events; flash kernels in it {counts} (expected {want} each: "
+            f"{DEPTH} per step x {PROFILE_STEPS} steps of epoch 1); wrapper launches {launches}")
+        if any(n > want for n in counts.values()):
+            raise AssertionError(f"the trace holds more launches than epoch 1's: {counts}")
+        if all(n == want for n in counts.values()):
+            break
+        if attempt == PROFILE_ATTEMPTS:
+            raise AssertionError(f"{PROFILE_ATTEMPTS} traces in a row lost launches: {counts}")
+    busy_ms, window_ms = _trace_busy(events)
+    by_name: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e.get("dur", 0) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"profile traced epoch: device busy {busy_ms:.3f} ms of a {window_ms:.3f} ms trace "
+        f"window ({busy_ms / window_ms * 100:.1f}% busy); five longest device ops (ms, summed "
+        "over the epoch): " + "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top))
+    return {"launches": launches, "busy_ms": busy_ms, "window_ms": window_ms}
+
+
 def _compile_stages(top: int = 8) -> str:
     """The ``top`` largest of dynamo's and inductor's timed compile stages
     so far in this process, in seconds summed over every compile."""
@@ -2622,11 +2725,16 @@ def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
     from turboprune_tpu_torch.ops import flash, masking
     from turboprune_tpu_torch.utils import ExperimentCheckpoints
 
+    from turboprune_tpu_torch.analysis.compile_audit import CompileLedger
+    from turboprune_tpu_torch.analysis.exec_manifest import entry_for, load_manifest
+
     cuda = torch.device("cuda")
     launch_counters = (flash.flash_fwd_cuda, flash.flash_bwd_dq_cuda, flash.flash_bwd_dkv_cuda)
     skips_before = counters["inductor"]["cudagraph_skips"]
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_compile_") as base:
+    # Every compile of the phase is recorded against the executable manifest.
+    ledger = CompileLedger()
+    with ledger, tempfile.TemporaryDirectory(prefix="chip_smoke_compile_") as base:
         # ---- ResNet-18 IMP, compiled: the main path, counts at 0 just before
         recorder = _Recorder()
         for c in launch_counters:
@@ -2821,6 +2929,20 @@ def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
     from torch._inductor.async_compile import shutdown_compile_workers
 
     shutdown_compile_workers()
+    manifest = load_manifest()
+    unattributed = [r for r in ledger.records
+                    if entry_for(manifest, r["file"], r["line"]) is None]
+    recompiles = ledger.recompiles()
+    log(f"compile audit: {len(ledger.records)} compiles by manifest entry "
+        f"{json.dumps(ledger.by_site(manifest))}; graph breaks "
+        f"{sum(ledger.graph_breaks.values())} {ledger.graph_breaks}; unique graphs "
+        f"{ledger.unique_graphs}; cudagraph skips {ledger.cudagraph_skips}; recompiles "
+        f"{len(recompiles)}: "
+        + "; ".join(f"{r['name']} ({r['file']}:{r['line']}, cache entries {r['cache_size']}): "
+                    f"{str(r['reason']).strip()}" for r in recompiles))
+    if ledger.graph_breaks or unattributed or any(r["fail"] for r in ledger.records):
+        raise AssertionError(f"compile audit: graph breaks {ledger.graph_breaks}, compiles "
+                             f"in no manifest entry {unattributed}")
     log(f"compile phase: {time.perf_counter() - t_phase:.1f} s")
     return {"device_launches": device_launches}
 
@@ -4745,7 +4867,7 @@ def _dp_compile_probe() -> dict:
     def f(x):
         return x * funcol.all_reduce(x.sum(0), "sum", group.WORLD)
 
-    x = torch.randn(64, 32, device="cuda")
+    x = torch.randn(64, 32, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
     want = f(x)
     t0 = time.perf_counter()
     try:
@@ -4757,6 +4879,7 @@ def _dp_compile_probe() -> dict:
         out = {"ran": True, "max_abs_err": float((got - want).abs().max()),
                "cudagraph_skips": sum(counters["inductor"]["cudagraph_skips"].values())
                if "cudagraph_skips" in counters["inductor"] else 0}
+    # torchlint: disable=broad-except -- the probe's finding: the error is recorded in its result and printed, which is what the probe asks
     except Exception as e:  # the probe's finding, reported: this is what it asks
         out = {"ran": False, "error": f"{type(e).__name__}: {str(e)[:300]}"}
     out["seconds"] = round(time.perf_counter() - t0, 1)
@@ -5075,6 +5198,7 @@ def main() -> int:
     slice_out = timed("slice", phase_slice)
     fleet_out = timed("fleet", phase_fleet, card)
     train_out = timed("train", phase_train)
+    profile_out = timed("profile", phase_profile)
     resnet_out = timed("resnet", phase_resnet)
     timed("resume", phase_resume)
     cyclic_out = timed("cyclic", phase_cyclic)
@@ -5090,8 +5214,8 @@ def main() -> int:
             "library_flash_ms")
     # Launches on the main paths: K1 in every forward, served (the build's
     # warm-up and capture by the wrapper, the replayed requests by the
-    # profiler), served by the fleet (its builds), trained, trained in
-    # cycles, trained with gathered N:M layers, warm-started from a timm
+    # profiler), served by the fleet (its builds), trained, trained under
+    # profile_dir's trace, trained in cycles, trained with gathered N:M layers, warm-started from a timm
     # checkpoint, trained compiled and trained data-parallel (each rank of
     # the dp phase's world, and its world of one); K2/K3 in every training
     # backward.
@@ -5099,7 +5223,8 @@ def main() -> int:
     # ones, whose CUDA-graph replays run no Python.
     compiled = dict(zip(("flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda"),
                         (compile_out["device_launches"][k] for k in KERNEL_NAMES)))
-    trained = {k: train_out["launches"][k] + cyclic_out["launches"][k] + compiled[k]
+    trained = {k: train_out["launches"][k] + profile_out["launches"][k]
+               + cyclic_out["launches"][k] + compiled[k]
                + sparse_out["launches"][k] + pretrained_out["launches"][k]
                + dp_out["launches"][k]
                for k in train_out["launches"]}

@@ -194,7 +194,7 @@ class ModelConfig:
     # so the ConvMask/LinearMask wrapper distinction has no JAX analog; the
     # key is accepted so reference configs compose, and validated so typos
     # still fail.
-    # graftlint: disable=conf-dead-schema-field -- reference-parity: accepted+validated for config compatibility, structurally meaningless in the pytree-mask port
+    # torchlint: disable=conf-dead-schema-field -- reference-parity: accepted+validated for config compatibility, structurally meaningless in the pytree-mask port
     mask_layer_type: str = "ConvMask"
     # Reference knob `use_compile` toggles torch.compile
     # (standard_pruning_harness.py:141). In the port, true trains and

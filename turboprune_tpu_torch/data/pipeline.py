@@ -161,7 +161,7 @@ class PrefetchEngine:
                     self._bump("items_emitted", 1)
             if not self._stop.is_set():
                 self._put(_DONE)
-        # graftlint: disable=broad-except -- thread boundary: ANY decode/transfer failure must cross to the consumer thread and re-raise there with its original traceback, not die silently in a daemon thread
+        # torchlint: disable=broad-except -- thread boundary: ANY decode/transfer failure must cross to the consumer thread and re-raise there with its original traceback, not die silently in a daemon thread
         except BaseException as e:
             for fut in self._ring:
                 fut.cancel()
@@ -263,7 +263,7 @@ class PrefetchEngine:
     def __del__(self):  # pragma: no cover — GC backstop only
         try:
             self.close()
-        # graftlint: disable=broad-except -- interpreter-teardown backstop: close() during GC may find modules already torn down; the deterministic path is the explicit close() in stream_batches
+        # torchlint: disable=broad-except -- interpreter-teardown backstop: close() during GC may find modules already torn down; the deterministic path is the explicit close() in stream_batches
         except Exception:
             pass
 

@@ -6,13 +6,15 @@ splits the level's epoch budget into ``cyclic_training.num_cycles`` cycles
 (``pruning.generate_cyclical_schedule``, by ``cyclic_training.strategy``)
 and gives each cycle a fresh optimizer and schedule (and, with sparse
 execution, its own entry into and exit from the level's plan); its rows
-carry a ``cycle`` column.
+carry a ``cycle`` column. It takes no ``profile_dir`` trace, as the JAX
+package's cyclic harness takes none, and says so once when one is set.
 """
 
 from __future__ import annotations
 
 from ..config.schema import ConfigError
 from ..ops import masking
+from ..parallel import say
 from ..pruning import generate_cyclical_schedule
 from ..utils import MODEL_INIT, OPTIMIZER_INIT, display_training_info
 from .pruning_harness import PruningHarness
@@ -31,6 +33,9 @@ class CyclicPruningHarness(PruningHarness):
                 "Set checkpoint_every_epochs=0 (level-granular resume still "
                 "works)."
             )
+        if self.cfg.experiment_params.profile_dir:
+            say("[profile] experiment_params.profile_dir is set, but the cyclic "
+                "harness takes no trace (as in the JAX package)")
 
     def train_one_level(self, epochs_per_level: int, level: int) -> dict:
         ct = self.cfg.cyclic_training

@@ -58,9 +58,14 @@ primary, except each rank's own train-stream position in the mid-level
 slot. Before a plan re-instantiates the model, every rank asserts that it
 derived the same widths.
 
-Options of the JAX harness that later slices port raise here, naming the
-ROADMAP.md item: the profiler trace (17) and the compiled step in a world
-of more than one process (13c).
+With ``experiment_params.profile_dir``, level 0's second training pass
+(``traces_epoch``) runs under ``torch.profiler`` and leaves one trace per
+process, ``rank{r}.pt.trace.json``, in that directory; the evaluation
+stays outside it, as in the JAX harness. A level resumed past that epoch
+takes no trace.
+
+The compiled step in a world of more than one process raises, naming
+its ROADMAP.md item (13c).
 """
 
 from __future__ import annotations
@@ -142,18 +147,34 @@ PRECISION_DTYPES = {
 }
 
 
-def refuse_unported(cfg: MainConfig) -> None:
-    """Raise on the options whose slice of the port is still to come."""
-    ep = cfg.experiment_params
-    unported = {
-        "experiment_params.profile_dir": (bool(ep.profile_dir), "item 17"),
-    }
-    for knob, (on, item) in unported.items():
-        if on:
-            raise NotImplementedError(
-                f"{knob} is not yet ported to turboprune_tpu_torch "
-                f"(ROADMAP.md queue A, {item})"
-            )
+def traces_epoch(profile_dir: str, level: int, epoch: int) -> bool:
+    """Whether ``experiment_params.profile_dir`` traces this epoch's
+    training pass: level 0's second epoch (its first pays the kernels'
+    builds and the allocator's growth), as in the JAX package."""
+    return bool(profile_dir) and level == 0 and epoch == 1
+
+
+@contextlib.contextmanager
+def epoch_trace(profile_dir: str, device: torch.device, rank: int) -> Iterator[None]:
+    """``torch.profiler`` around the body (CPU activity, plus CUDA activity
+    on a CUDA device), written as a Chrome/TensorBoard trace
+    ``rank{rank}.pt.trace.json`` into ``profile_dir``. The device is
+    synchronised before the profile closes, so the body's last kernels are
+    in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    path = out / f"rank{rank}.pt.trace.json"
+    prof.export_chrome_trace(str(path))
+    say(f"[profile] level 0 epoch 1 training pass traced: {path}")
 
 
 class PruningHarness:
@@ -165,7 +186,6 @@ class PruningHarness:
         expt_dir: tuple[str, str],
         device: str | torch.device = "cuda",
     ):
-        refuse_unported(cfg)
         self.cfg = cfg
         self.prefix, self.expt_dir = expt_dir
         self.device = resolve_device(device)
@@ -337,7 +357,7 @@ class PruningHarness:
         sums = None
         t0 = time.perf_counter()
         with contextlib.closing(self.train_batches()) as batches:
-            for batch in batches:
+            for batch in batches:  # torchlint: hot-loop
                 sums = add_sums(sums, self._train_step(self.state, batch))
         if sums is None:
             raise RuntimeError(
@@ -375,7 +395,7 @@ class PruningHarness:
         sums = None
         loader = self.loaders.test_loader
         scope = getattr(loader, "batch_scope", "global")
-        for batch in loader:
+        for batch in loader:  # torchlint: hot-loop
             batch = shard_batch(batch, self.mesh, scope)
             sums = add_sums(sums, eval_step(model, masks, batch, forward))
         if sums is None:
@@ -551,9 +571,12 @@ class PruningHarness:
         # anchored at) the restored full state.
         self._enter_plan()
         try:
+            profile_dir = self.cfg.experiment_params.profile_dir
             for epoch in range(start_epoch, epochs_per_level):
                 row = {"level": level, "epoch": epoch}
-                max_test_acc = self._run_epoch(row, max_test_acc, snapshot_ok=level == 0)
+                max_test_acc = self._run_epoch(
+                    row, max_test_acc, snapshot_ok=level == 0,
+                    trace_dir=profile_dir if traces_epoch(profile_dir, level, epoch) else "")
                 # The level's last epoch is saved as model_level_{level}.
                 if ckpt_every and (epoch + 1) % ckpt_every == 0 and epoch + 1 < epochs_per_level:
                     self._save_mid_level(level, epoch, max_test_acc)
@@ -588,12 +611,16 @@ class PruningHarness:
             meta["train_loader_stream_hosts"] = process_count()
         self.ckpts.save_mid_level(level, epoch, self._full_state(), meta=meta)
 
-    def _run_epoch(self, row: dict, max_test_acc: float, snapshot_ok: bool) -> float:
+    def _run_epoch(self, row: dict, max_test_acc: float, snapshot_ok: bool,
+                   trace_dir: str = "") -> float:
         """Train and evaluate one epoch, log ``row`` (which holds its level
         and epoch) and, where ``snapshot_ok`` and the epoch is
-        ``rewind_epoch``, save the rewind snapshot. Returns the level's
-        best test accuracy so far."""
-        row.update(self.train_epoch())
+        ``rewind_epoch``, save the rewind snapshot. With ``trace_dir``, the
+        training pass (not the evaluation) is traced into it. Returns the
+        level's best test accuracy so far."""
+        with (epoch_trace(trace_dir, self.device, process_index()) if trace_dir
+              else contextlib.nullcontext()):
+            row.update(self.train_epoch())
         row.update(self.evaluate())
         max_test_acc = max(max_test_acc, row["test_acc"])
         row["max_test_acc"] = max_test_acc

@@ -225,7 +225,7 @@ class DynamicBatcher:
 
     # -------------------------------------------------------------- worker
     def _loop(self) -> None:
-        while not self._stop.is_set():
+        while not self._stop.is_set():  # torchlint: hot-loop
             try:
                 first = self._queue.get(timeout=0.05)
             except queue.Empty:
@@ -268,6 +268,7 @@ class DynamicBatcher:
         )
         try:
             logits = engine.predict(images)
+        # torchlint: disable=broad-except -- degrade-don't-die: the error is delivered to every caller via future.set_exception and counted in errors_total; the batcher thread must survive any engine failure
         except Exception as e:  # surface to every caller, keep serving
             if self.metrics:
                 self.metrics.inc("errors_total", len(batch))

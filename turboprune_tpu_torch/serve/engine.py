@@ -308,6 +308,7 @@ class InferenceEngine:
     def _executable(self, bucket: int) -> _Bucket:
         """The compiled forward for one bucket shape, built once per bucket
         per engine."""
+        # torchlint: disable=unsynchronized-shared-mutation -- the lock-free fast path: _compiled is only written under _compile_lock with a finished bucket, a dict lookup is atomic, and a bucket close() released is caught under its own lock (b.fn is None)
         b = self._compiled.get(bucket)
         if b is not None:
             if self.metrics:
@@ -327,6 +328,7 @@ class InferenceEngine:
             # Single flight: concurrent requests for the same cold bucket
             # wait for one build; warm buckets take the lock-free path.
             with _BUILD_LOCK:
+                # torchlint: disable=blocking-call-under-lock -- single-flight build IS the point of _compile_lock: concurrent requests for the same cold bucket wait for one compile; warm buckets stay lock-free via the fast path above
                 b = self._build(bucket)
             self._inc("compile_seconds_total", time.perf_counter() - t0)
             self._compiled[bucket] = b
@@ -487,6 +489,7 @@ class InferenceEngine:
             self.model = None
             gc.collect()  # dynamo's entries sit in reference cycles
             if self.device.type == "cuda":
+                # torchlint: disable=blocking-call-under-lock -- under _BUILD_LOCK on purpose: a synchronize while another engine captures a CUDA graph would fail that capture, and _BUILD_LOCK is what keeps captures alone
                 torch.cuda.synchronize(self.device)
                 torch.cuda.empty_cache()
 

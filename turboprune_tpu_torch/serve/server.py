@@ -121,6 +121,7 @@ class _Handler(BaseHTTPRequestHandler):
                           f"{self.server.request_timeout_s}s"},
             )
             return
+        # torchlint: disable=broad-except -- degrade-don't-die: the error reaches the client as an HTTP 500 body; one bad request must not kill the serving process
         except Exception as e:  # engine/batcher failure — keep serving
             self._send_json(500, {"error": repr(e)[:400]})
             return
