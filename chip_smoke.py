@@ -97,12 +97,16 @@ result line):
             and device work against eager, one bf16 step's gradient against
             eager's. The timed steps and the compiled gradients run on the
             two runs' own harnesses, whose compiled forwards they reuse (no
-            new dynamo graph, checked), so each model compiles once. The
-            whole phase runs under the compile audit's ledger
-            (turboprune_tpu_torch/analysis/compile_audit.py): it prints the
-            compiles by manifest entry, the graph breaks, and the recompiles
-            with dynamo's reasons, and fails on a graph break or on a
-            compile outside the executable manifest.
+            new dynamo graph, checked), so each model compiles once. Each
+            model's run and timed steps lie in a compile-audit ledger of
+            their own (turboprune_tpu_torch/analysis/compile_audit.py), the
+            DeiT's begun after a dynamo reset; each prints its compiles by
+            manifest entry, graph breaks and recompiles with dynamo's
+            reasons, and fails on anything CompileLedger.problems() names
+            against the executable manifest (a graph break, a compile
+            outside it, a recompile past its allowance of 0). The gradient
+            and card-against-CPU checks compile other shapes on purpose and
+            run outside both ledgers.
 
 9. imagenet conf/imagenet_imp_tpk.yaml (ResNet-50 at 224, 1000 classes, bf16)
             fed by the native .tpk loader through the prefetch engine
@@ -2709,6 +2713,25 @@ def _kinds_line(kinds: dict) -> str:
                      for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]))
 
 
+def _hold_ledger(name: str, ledger, manifest: dict) -> None:
+    """Log one model's compiles by manifest entry and raise on anything the
+    manifest does not explain (``CompileLedger.problems``): a graph break,
+    a compile in no entry, a failed compile, a recompile past the
+    manifest's allowance."""
+    recompiles = ledger.recompiles()
+    problems = ledger.problems(manifest)
+    log(f"compile audit {name}: {len(ledger.records)} compiles by manifest entry "
+        f"{json.dumps(ledger.by_site(manifest))}; graph breaks "
+        f"{sum(ledger.graph_breaks.values())} {ledger.graph_breaks}; unique graphs "
+        f"{ledger.unique_graphs}; cudagraph skips {ledger.cudagraph_skips}; recompiles "
+        f"{len(recompiles)}"
+        + "".join(f"; {r['name']} ({r['file']}:{r['line']}, cache entries {r['cache_size']}): "
+                  f"{str(r['reason']).strip()}" for r in recompiles)
+        + f"; problems {len(problems)}")
+    if problems:
+        raise AssertionError(f"compile audit {name}: " + "; ".join(problems))
+
+
 def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
     from unittest import mock
 
@@ -2726,78 +2749,87 @@ def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
     from turboprune_tpu_torch.utils import ExperimentCheckpoints
 
     from turboprune_tpu_torch.analysis.compile_audit import CompileLedger
-    from turboprune_tpu_torch.analysis.exec_manifest import entry_for, load_manifest
+    from turboprune_tpu_torch.analysis.exec_manifest import load_manifest
 
     cuda = torch.device("cuda")
     launch_counters = (flash.flash_fwd_cuda, flash.flash_bwd_dq_cuda, flash.flash_bwd_dkv_cuda)
     skips_before = counters["inductor"]["cudagraph_skips"]
     t_phase = time.perf_counter()
-    # Every compile of the phase is recorded against the executable manifest.
-    ledger = CompileLedger()
-    with ledger, tempfile.TemporaryDirectory(prefix="chip_smoke_compile_") as base:
+    # Each model's compiled run and timed steps are recorded in a ledger of
+    # their own and held to the executable manifest (``_hold_ledger``): a
+    # recompile of the train or eval step in steady state fails the phase.
+    # The cross-checks between them compile other shapes and models on
+    # purpose and run outside both ledgers.
+    ledgers = {"resnet": CompileLedger(), "deit": CompileLedger()}
+    manifest = load_manifest()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_compile_") as base:
         # ---- ResNet-18 IMP, compiled: the main path, counts at 0 just before
-        recorder = _Recorder()
-        for c in launch_counters:
-            c.launches = 0
-        rc, expt, wall = _run_config(
-            "cifar10_imp", COMPILE_RESNET_OVERRIDES + [f"experiment_params.base_dir={base}/imp"],
-            recorder)
-        launches = {c.__name__: c.launches for c in launch_counters}
-        # ---- end of the main path
-        skips = counters["inductor"]["cudagraph_skips"] - skips_before
-        log(f"compile resnet imp: run_experiment_torch main --config-name=cifar10_imp "
-            f"model_params.use_compile=true -> {rc} in {wall:.1f} s (compiles, data "
-            f"generation, init, checkpoints included; the eager resnet phase's run "
-            f"{resnet_eager['wall_s']:.1f} s); K1/K2/K3 launches {launches}; dynamo graphs "
-            f"after level 0 {recorder.graphs.get(0)}, after level 1 {recorder.graphs.get(1)}; "
-            f"inductor cudagraph skips {skips}")
-        if (rc != 0 or any(launches.values()) or skips
-                or recorder.graphs.get(1) != recorder.graphs.get(0)):
-            raise AssertionError("compiled cifar10_imp: rc, launches, a recompile at level 1 "
-                                 "or a CUDA-graph skip")
-        rows, level1 = _check_imp_run("compile resnet imp", expt, recorder)
-        img_s = [float(r["samples_per_sec"]) for r in rows]
-        log(f"compile resnet seconds: first train step {recorder.first_step_s:.2f} s (dynamo "
-            f"and inductor compile of forward and backward, CUDA-graph warm-up included), "
-            f"evaluations {', '.join(f'{t:.2f}' for t in recorder.eval_s)} s (the first "
-            f"compiles the eval graph); img/s per IMP epoch compiled "
-            f"{img_s[0]:.1f} (compiles included) / {img_s[1]:.1f}, eager "
-            + " / ".join(f"{v:.1f}" for v in resnet_eager["img_s"]))
+        with ledgers["resnet"]:
+            recorder = _Recorder()
+            for c in launch_counters:
+                c.launches = 0
+            rc, expt, wall = _run_config(
+                "cifar10_imp",
+                COMPILE_RESNET_OVERRIDES + [f"experiment_params.base_dir={base}/imp"], recorder)
+            launches = {c.__name__: c.launches for c in launch_counters}
+            # ---- end of the main path
+            skips = counters["inductor"]["cudagraph_skips"] - skips_before
+            log(f"compile resnet imp: run_experiment_torch main --config-name=cifar10_imp "
+                f"model_params.use_compile=true -> {rc} in {wall:.1f} s (compiles, data "
+                f"generation, init, checkpoints included; the eager resnet phase's run "
+                f"{resnet_eager['wall_s']:.1f} s); K1/K2/K3 launches {launches}; dynamo graphs "
+                f"after level 0 {recorder.graphs.get(0)}, after level 1 {recorder.graphs.get(1)}; "
+                f"inductor cudagraph skips {skips}")
+            if (rc != 0 or any(launches.values()) or skips
+                    or recorder.graphs.get(1) != recorder.graphs.get(0)):
+                raise AssertionError("compiled cifar10_imp: rc, launches, a recompile at level 1 "
+                                     "or a CUDA-graph skip")
+            rows, level1 = _check_imp_run("compile resnet imp", expt, recorder)
+            img_s = [float(r["samples_per_sec"]) for r in rows]
+            log(f"compile resnet seconds: first train step {recorder.first_step_s:.2f} s (dynamo "
+                f"and inductor compile of forward and backward, CUDA-graph warm-up included), "
+                f"evaluations {', '.join(f'{t:.2f}' for t in recorder.eval_s)} s (the first "
+                f"compiles the eval graph); img/s per IMP epoch compiled "
+                f"{img_s[0]:.1f} (compiles included) / {img_s[1]:.1f}, eager "
+                + " / ".join(f"{v:.1f}" for v in resnet_eager["img_s"]))
 
-        log(f"compile resnet compile seconds by stage (torch._dynamo compile_times, summed, "
-            f"largest first): {_compile_stages()}")
+            log(f"compile resnet compile seconds by stage (torch._dynamo compile_times, summed, "
+                f"largest first): {_compile_stages()}")
 
-        # ---- the compiled bf16 step at batch 512: time and device work, on
-        # the IMP run's harness, whose compiled forwards serve every shape
-        # used here (a new harness or model would compile them again)
-        harness = recorder.harness
-        graphs = counters["stats"]["unique_graphs"]
-        harness.setup_level(1)
-        batch = next(iter(harness.loaders.train_loader))
+            # ---- the compiled bf16 step at batch 512: time and device work, on
+            # the IMP run's harness, whose compiled forwards serve every shape
+            # used here (a new harness or model would compile them again)
+            harness = recorder.harness
+            graphs = counters["stats"]["unique_graphs"]
+            harness.setup_level(1)
+            batch = next(iter(harness.loaders.train_loader))
 
-        def step():
-            return harness._train_step(harness.state, batch)
+            def step():
+                return harness._train_step(harness.state, batch)
 
-        step_ms = _call_ms(step, reps=5, warmup=3)
-        busy_ms, _, kernels = _device_busy_ms(step, reps=PROFILED_STEPS, inference=False,
-                                              top=None)
-        kinds = _kinds(kernels)
-        idle = max(0.0, 1 - busy_ms / step_ms) * 100 if busy_ms else float("nan")
-        e = resnet_eager
-        log(f"compile resnet train step (ResNet-18 CIFAR, batch {RESNET_BATCH}, bf16): "
-            f"{step_ms:.3f} ms (CUDA events around one step, host work included, median of 5; "
-            f"eager {e['step_ms']:.3f}); device busy {busy_ms:.3f} ms per step (torch.profiler, "
-            f"{PROFILED_STEPS} replayed steps; eager {e['busy_ms']:.3f}), idle {idle:.1f}% "
-            f"(eager {max(0.0, 1 - e['busy_ms'] / e['step_ms']) * 100:.1f}%); "
-            f"{RESNET_BATCH / step_ms * 1e3:.0f} img/s by step time")
-        log(f"compile resnet train step device time by kind (ms per step): {_kinds_line(kinds)}; "
-            f"eager: {_kinds_line(e['kinds'])}")
-        if kernels:
-            log("compile resnet train step top device kernels (ms per step): "
-                + "; ".join(f"{name} {ms:.3f}" for name, ms in kernels[:5]))
+            step_ms = _call_ms(step, reps=5, warmup=3)
+            busy_ms, _, kernels = _device_busy_ms(step, reps=PROFILED_STEPS, inference=False,
+                                                  top=None)
+            kinds = _kinds(kernels)
+            idle = max(0.0, 1 - busy_ms / step_ms) * 100 if busy_ms else float("nan")
+            e = resnet_eager
+            log(f"compile resnet train step (ResNet-18 CIFAR, batch {RESNET_BATCH}, bf16): "
+                f"{step_ms:.3f} ms (CUDA events around one step, host work included, median of 5; "
+                f"eager {e['step_ms']:.3f}); device busy {busy_ms:.3f} ms per step "
+                f"(torch.profiler, {PROFILED_STEPS} replayed steps; eager {e['busy_ms']:.3f}), "
+                f"idle {idle:.1f}% "
+                f"(eager {max(0.0, 1 - e['busy_ms'] / e['step_ms']) * 100:.1f}%); "
+                f"{RESNET_BATCH / step_ms * 1e3:.0f} img/s by step time")
+            log(f"compile resnet train step device time by kind (ms per step): "
+                f"{_kinds_line(kinds)}; eager: {_kinds_line(e['kinds'])}")
+            if kernels:
+                log("compile resnet train step top device kernels (ms per step): "
+                    + "; ".join(f"{name} {ms:.3f}" for name, ms in kernels[:5]))
 
-        # ---- one step compiled against eager: bf16 at batch 512 (the
-        # compiled one on the harness's own model) ...
+        _hold_ledger("resnet", ledgers["resnet"], manifest)
+
+        # ---- outside the ledgers: one step compiled against eager, bf16 at
+        # batch 512 (the compiled one on the harness's own model) ...
         weights = {k: v.detach().clone() for k, v in harness.state.model.state_dict().items()}
         masks = {p: m.to(cuda) for p, m in level1["masks"].items()}
 
@@ -2819,89 +2851,100 @@ def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
         # ... and fp32 at batch 32 beside the CPU and float64, TF32 off
         _card_vs_cpu(resnet_eager["masks"], compiled=True)
 
-        # ---- DeiT-Small/16 with flash, compiled: the main path, counts at 0;
-        # the profiler counts the kernels' launches (CUDA-graph replays run no
-        # Python, so the wrappers' counters see eager, warm-up and recording
-        # calls only)
-        recorder = _Recorder()
-        for c in launch_counters:
-            c.launches = 0
-        t0 = time.perf_counter()
-        with (profile(activities=[ProfilerActivity.CUDA]) as prof,
-              mock.patch.object(driver, "PruningHarness", recorder.harness_cls())):
-            rc = run_experiment_torch.main(
-                ["--device", "cuda", "--config-name=imagenet_imp", *COMPILE_TRAIN_OVERRIDES,
-                 f"experiment_params.base_dir={base}/deit"])
-            torch.cuda.synchronize()
-            time.sleep(PROFILE_TAIL_S)
-        wall = time.perf_counter() - t0
-        launches = {c.__name__: c.launches for c in launch_counters}
-        # ---- end of the main path
-        events = _device_events(prof)
-        device_launches = {name: sum(1 for _, _, ev in events if name in ev)
-                           for name in KERNEL_NAMES}
-        del prof
-        skips = counters["inductor"]["cudagraph_skips"] - skips_before
-        expect = dict(zip(KERNEL_NAMES, (DEPTH * (TRAIN_STEPS + EVAL_BATCHES),
-                                         DEPTH * TRAIN_STEPS, DEPTH * TRAIN_STEPS)))
-        log(f"compile deit: run_experiment_torch main --config-name=imagenet_imp (DeiT-Small/16, "
-            f"flash, batch 256, use_compile) -> {rc} in {wall:.1f} s (compiles included); "
-            f"kernel launches on the device (torch.profiler) {device_launches} (expected "
-            f"{expect}: 12 per forward, {TRAIN_STEPS} steps and {EVAL_BATCHES} eval batches); "
-            f"the wrappers' counters {launches} (eager, warm-up and recording calls); "
-            f"cudagraph skips {skips}")
-        if rc != 0 or device_launches != expect or skips:
-            raise AssertionError("compiled DeiT: rc, kernel launches or a CUDA-graph skip")
-        log(f"compile deit compile seconds by stage (since the process began): "
-            f"{_compile_stages()}")
-        (dexpt,) = [d for d in (Path(base) / "deit").iterdir() if d.is_dir()]
-        ckpts = ExperimentCheckpoints(dexpt)
-        level0, dlevel1 = ckpts.load_level(0), ckpts.load_level(1)
-        d0 = masking.overall_density(level0["masks"])
-        d1 = masking.overall_density(dlevel1["masks"])
-        n = masking.num_prunable(dlevel1["masks"])
-        losses = [float(r[k]) for lvl in (0, 1) for r in _read_csv(
-            dexpt / "metrics" / "level_wise_metrics" / f"level_{lvl}_metrics.csv")
-            for k in ("train_loss", "test_loss")]
-        exact, ladder = _mag_ladder(level0, dlevel1)
-        log(f"compile deit: densities {d0:.6f} / {d1:.6f} over {n} ({ladder}); losses {losses}")
-        if d0 != 1.0 or not exact or not all(map(math.isfinite, losses)):
-            raise AssertionError("compiled DeiT: densities or losses are wrong")
+        # The DeiT compiles train_forward / eval_forward from clean dynamo
+        # caches: its first compile is a first compile, not a guard failure
+        # on the ResNet's entries for the same code objects (or on the
+        # batch-32 check's).
+        # torchlint: disable=recompile-hazard -- the reset is the point: the DeiT's ledger must see its own first compiles; the ResNet's compiled forwards are not called again
+        torch._dynamo.reset()
+        with ledgers["deit"]:
+            # ---- DeiT-Small/16 with flash, compiled: the main path, counts at 0;
+            # the profiler counts the kernels' launches (CUDA-graph replays run no
+            # Python, so the wrappers' counters see eager, warm-up and recording
+            # calls only)
+            recorder = _Recorder()
+            for c in launch_counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            with (profile(activities=[ProfilerActivity.CUDA]) as prof,
+                  mock.patch.object(driver, "PruningHarness", recorder.harness_cls())):
+                rc = run_experiment_torch.main(
+                    ["--device", "cuda", "--config-name=imagenet_imp", *COMPILE_TRAIN_OVERRIDES,
+                     f"experiment_params.base_dir={base}/deit"])
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_TAIL_S)
+            wall = time.perf_counter() - t0
+            launches = {c.__name__: c.launches for c in launch_counters}
+            # ---- end of the main path
+            events = _device_events(prof)
+            device_launches = {name: sum(1 for _, _, ev in events if name in ev)
+                               for name in KERNEL_NAMES}
+            del prof
+            skips = counters["inductor"]["cudagraph_skips"] - skips_before
+            expect = dict(zip(KERNEL_NAMES, (DEPTH * (TRAIN_STEPS + EVAL_BATCHES),
+                                             DEPTH * TRAIN_STEPS, DEPTH * TRAIN_STEPS)))
+            log(f"compile deit: run_experiment_torch main --config-name=imagenet_imp "
+                f"(DeiT-Small/16, flash, batch 256, use_compile) -> {rc} in {wall:.1f} s "
+                f"(compiles included); "
+                f"kernel launches on the device (torch.profiler) {device_launches} (expected "
+                f"{expect}: 12 per forward, {TRAIN_STEPS} steps and {EVAL_BATCHES} eval batches); "
+                f"the wrappers' counters {launches} (eager, warm-up and recording calls); "
+                f"cudagraph skips {skips}")
+            if rc != 0 or device_launches != expect or skips:
+                raise AssertionError("compiled DeiT: rc, kernel launches or a CUDA-graph skip")
+            log(f"compile deit compile seconds by stage (since the process began): "
+                f"{_compile_stages()}")
+            (dexpt,) = [d for d in (Path(base) / "deit").iterdir() if d.is_dir()]
+            ckpts = ExperimentCheckpoints(dexpt)
+            level0, dlevel1 = ckpts.load_level(0), ckpts.load_level(1)
+            d0 = masking.overall_density(level0["masks"])
+            d1 = masking.overall_density(dlevel1["masks"])
+            n = masking.num_prunable(dlevel1["masks"])
+            losses = [float(r[k]) for lvl in (0, 1) for r in _read_csv(
+                dexpt / "metrics" / "level_wise_metrics" / f"level_{lvl}_metrics.csv")
+                for k in ("train_loss", "test_loss")]
+            exact, ladder = _mag_ladder(level0, dlevel1)
+            log(f"compile deit: densities {d0:.6f} / {d1:.6f} over {n} ({ladder}); losses {losses}")
+            if d0 != 1.0 or not exact or not all(map(math.isfinite, losses)):
+                raise AssertionError("compiled DeiT: densities or losses are wrong")
 
-        # ---- the compiled DeiT step: time, device work, launches per replay,
-        # on the run's harness (its compiled forwards)
-        harness = recorder.harness
-        graphs = counters["stats"]["unique_graphs"]
-        harness.setup_level(1)
-        batch = next(iter(harness.loaders.train_loader))
+            # ---- the compiled DeiT step: time, device work, launches per replay,
+            # on the run's harness (its compiled forwards)
+            harness = recorder.harness
+            graphs = counters["stats"]["unique_graphs"]
+            harness.setup_level(1)
+            batch = next(iter(harness.loaders.train_loader))
 
-        def deit_step():
-            return harness._train_step(harness.state, batch)
+            def deit_step():
+                return harness._train_step(harness.state, batch)
 
-        deit_ms = _call_ms(deit_step, reps=5, warmup=3)
-        per_replay: dict = {}
-        deit_busy, ours, top = _device_busy_ms(deit_step, reps=PROFILED_STEPS, inference=False,
-                                               counts=per_replay)
-        t = train_eager
-        log(f"compile deit train step (DeiT-Small/16 @ 224, batch 256, bf16, flash): "
-            f"{deit_ms:.3f} ms (CUDA events, median of 5; eager {t['step_ms']:.3f}); device "
-            f"busy {deit_busy:.3f} ms per step ({PROFILED_STEPS} replayed steps; eager "
-            f"{t['busy_ms']:.3f}, compiled / eager {deit_busy / t['busy_ms']:.3f}), idle "
-            f"{max(0.0, 1 - deit_busy / deit_ms) * 100:.1f}% (eager "
-            f"{max(0.0, 1 - t['busy_ms'] / t['step_ms']) * 100:.1f}%); "
-            f"{256 / deit_ms * 1e3:.0f} img/s by step time; K1+K2+K3 "
-            f"{sum(ours.values()):.3f} ms; launches in {PROFILED_STEPS} replayed steps "
-            f"{per_replay}")
-        if top:
-            log("compile deit train step top device kernels (ms per step): "
-                + "; ".join(f"{name} {ms:.3f}" for name, ms in top))
-        if per_replay != dict.fromkeys(KERNEL_NAMES, DEPTH * PROFILED_STEPS):
-            raise AssertionError(f"K1/K2/K3 per replayed step {per_replay}, expected "
-                                 f"{DEPTH} each")
+            deit_ms = _call_ms(deit_step, reps=5, warmup=3)
+            per_replay: dict = {}
+            deit_busy, ours, top = _device_busy_ms(deit_step, reps=PROFILED_STEPS, inference=False,
+                                                   counts=per_replay)
+            t = train_eager
+            log(f"compile deit train step (DeiT-Small/16 @ 224, batch 256, bf16, flash): "
+                f"{deit_ms:.3f} ms (CUDA events, median of 5; eager {t['step_ms']:.3f}); device "
+                f"busy {deit_busy:.3f} ms per step ({PROFILED_STEPS} replayed steps; eager "
+                f"{t['busy_ms']:.3f}, compiled / eager {deit_busy / t['busy_ms']:.3f}), idle "
+                f"{max(0.0, 1 - deit_busy / deit_ms) * 100:.1f}% (eager "
+                f"{max(0.0, 1 - t['busy_ms'] / t['step_ms']) * 100:.1f}%); "
+                f"{256 / deit_ms * 1e3:.0f} img/s by step time; K1+K2+K3 "
+                f"{sum(ours.values()):.3f} ms; launches in {PROFILED_STEPS} replayed steps "
+                f"{per_replay}")
+            if top:
+                log("compile deit train step top device kernels (ms per step): "
+                    + "; ".join(f"{name} {ms:.3f}" for name, ms in top))
+            if per_replay != dict.fromkeys(KERNEL_NAMES, DEPTH * PROFILED_STEPS):
+                raise AssertionError(f"K1/K2/K3 per replayed step {per_replay}, expected "
+                                     f"{DEPTH} each")
 
-        # ---- one DeiT step compiled against eager, level 1's weights and
-        # masks, the train phase's batch; the compiled one on the harness's
-        # own model, level 1's weights copied into it in place
+        _hold_ledger("deit", ledgers["deit"], manifest)
+
+        # ---- outside the ledgers: one DeiT step compiled against eager,
+        # level 1's weights and masks, the train phase's batch; the compiled
+        # one on the harness's own model, level 1's weights copied into it in
+        # place
         cfg = compose("imagenet_imp", COMPILE_TRAIN_OVERRIDES)
         x, y = synthetic_arrays(256, 224, 1000, seed=7)
         images = normalize_uint8(torch.from_numpy(x).to(cuda), CIFAR10_MEAN, CIFAR10_STD)
@@ -2929,20 +2972,6 @@ def phase_compile(resnet_eager: dict, train_eager: dict) -> dict:
     from torch._inductor.async_compile import shutdown_compile_workers
 
     shutdown_compile_workers()
-    manifest = load_manifest()
-    unattributed = [r for r in ledger.records
-                    if entry_for(manifest, r["file"], r["line"]) is None]
-    recompiles = ledger.recompiles()
-    log(f"compile audit: {len(ledger.records)} compiles by manifest entry "
-        f"{json.dumps(ledger.by_site(manifest))}; graph breaks "
-        f"{sum(ledger.graph_breaks.values())} {ledger.graph_breaks}; unique graphs "
-        f"{ledger.unique_graphs}; cudagraph skips {ledger.cudagraph_skips}; recompiles "
-        f"{len(recompiles)}: "
-        + "; ".join(f"{r['name']} ({r['file']}:{r['line']}, cache entries {r['cache_size']}): "
-                    f"{str(r['reason']).strip()}" for r in recompiles))
-    if ledger.graph_breaks or unattributed or any(r["fail"] for r in ledger.records):
-        raise AssertionError(f"compile audit: graph breaks {ledger.graph_breaks}, compiles "
-                             f"in no manifest entry {unattributed}")
     log(f"compile phase: {time.perf_counter() - t_phase:.1f} s")
     return {"device_launches": device_launches}
 

@@ -702,6 +702,7 @@ GATE_PATHS = (
     + sorted((REPO / "tests").glob("test_torch_*.py"))
     + sorted((REPO / "tests").glob("torch_port_*.py"))
     + sorted(REPO.glob("run_*_torch.py"))
+    + sorted((REPO / "scripts").glob("*_torch.py"))
 )
 
 

@@ -138,3 +138,60 @@ def test_compile_audit_fails_on_planted_faults(tmp_path, capsys, builder, says, 
     assert says in out and "NOT clean" in out
     if not_says:
         assert not_says not in out
+
+
+# ------------------------------------------- one ledger per compiled model
+
+
+def _tiny_vit_step(depth: int):
+    """A masked train step of a tiny ViT of ``depth`` blocks: ``step(forward,
+    n)`` runs one forward and backward at batch ``n`` through ``forward``
+    (``compile_forward(train_forward, cpu)``)."""
+    from turboprune_tpu_torch.models.vit import VisionTransformer
+    from turboprune_tpu_torch.ops.masking import make_masks
+
+    model = VisionTransformer(num_classes=10, patch_size=16, embed_dim=32, depth=depth,
+                              num_heads=2, image_size=32)
+    model.init_weights(torch.Generator().manual_seed(depth))
+    masks = make_masks(model)
+    gen = torch.Generator().manual_seed(10 + depth)
+
+    def step(forward, n: int) -> None:
+        images = torch.randn(n, 32, 32, 3, generator=gen)
+        labels = torch.randint(0, 10, (n,), generator=gen)
+        forward(model, masks, images, labels)["loss"].backward()
+
+    return step
+
+
+def test_a_ledger_per_model_after_a_reset_is_clean_and_a_recompile_fails():
+    """``chip_smoke.py``'s compile phase: two models through the shared
+    compiled train step, each in a ledger of its own, begun after a dynamo
+    reset. Each holds one compile and no problem: the second model's first
+    compile is not a guard failure on the first's entry for the same code
+    object. A step at another batch inside a model's ledger is a
+    steady-state recompile, and ``problems()`` names it."""
+    from turboprune_tpu_torch.analysis.compile_audit import CompileLedger
+    from turboprune_tpu_torch.analysis.exec_manifest import load_manifest
+    from turboprune_tpu_torch.train.steps import compile_forward, train_forward
+
+    manifest = load_manifest()
+    ledgers, runs = [], []
+    for depth in (1, 2):
+        torch._dynamo.reset()
+        step, forward = _tiny_vit_step(depth), compile_forward(train_forward, CPU)
+        with CompileLedger() as ledger:
+            step(forward, 2)
+            step(forward, 2)
+        ledgers.append(ledger)
+        runs.append((step, forward))
+    assert [len(ledger.records) for ledger in ledgers] == [1, 1]
+    assert [ledger.recompiles() for ledger in ledgers] == [[], []]
+    assert [ledger.problems(manifest) for ledger in ledgers] == [[], []]
+
+    step, forward = runs[1]
+    with ledgers[1]:
+        step(forward, 3)
+    (problem,) = ledgers[1].problems(manifest)
+    assert problem.startswith("train_forward (turboprune_tpu_torch/train/steps.py:")
+    assert "recompiled 1x (manifest allows 0)" in problem and "size mismatch" in problem

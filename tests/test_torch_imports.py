@@ -1,11 +1,13 @@
 """The port stands alone: no module of turboprune_tpu_torch, nor
 chip_smoke.py, ablate_flash_fwd.py, card_cpu_noise.py, run_server_torch.py,
-run_experiment_torch.py, run_cyclic_training_experiment_torch.py or the data-parallel
+run_experiment_torch.py, run_cyclic_training_experiment_torch.py,
+scripts/replay_committed_runs_torch.py or the data-parallel
 tests' worker (tests/torch_port_dp_worker.py) imports JAX, flax, optax, orbax, grain or the JAX package
 (not even its jax-free modules). Checked on the AST, so a lazy import
 inside a function counts too."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -20,6 +22,7 @@ FILES = sorted((REPO / "turboprune_tpu_torch").rglob("*.py")) + [
     REPO / "run_experiment_torch.py",
     REPO / "run_cyclic_training_experiment_torch.py",
     REPO / "tests" / "torch_port_dp_worker.py",
+    REPO / "scripts" / "replay_committed_runs_torch.py",
 ]
 
 
@@ -43,3 +46,12 @@ def test_no_jax_or_reference_imports(path):
 def test_the_check_sees_imports():
     probe = REPO / "tests" / "test_torch_imports.py"
     assert {"ast", "pathlib", "pytest"} <= imported_roots(probe)
+
+
+def test_the_hard_task_script_calls_only_the_port():
+    """scripts/accuracy_runs_r5_torch.sh runs the port's entry points and
+    the replay script's check, never the JAX package's drivers."""
+    text = (REPO / "scripts" / "accuracy_runs_r5_torch.sh").read_text()
+    called = set(re.findall(r"[\w/]+\.py\b", text))
+    assert called == {"run_experiment_torch.py", "run_cyclic_training_experiment_torch.py",
+                      "scripts/replay_committed_runs_torch.py"}, called

@@ -21,9 +21,11 @@ open, naming the missing header.
 
 Python owns: writing files (``write_tpk_raw``, ``write_tpk_jpegs``,
 ``pack_imagefolder``), the epoch shuffle, the host's shard, and handing
-batches to the device through the prefetch engine (``pipeline.py``). The
-port runs as one process (multi-process data parallelism is ROADMAP.md
-queue A, item 13): the shard is the whole file.
+batches to the device through the prefetch engine (``pipeline.py``). Each
+process reads the strided shard of its (data rank, data size):
+``make_shard(n, pid, nproc)``, which ``TpkImageLoader`` takes from
+``shard=`` (the mesh's data axis) or, without it, from the process's index
+and count; a world of one process reads the whole file.
 """
 
 from __future__ import annotations

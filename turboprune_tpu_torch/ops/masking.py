@@ -93,6 +93,14 @@ def overall_density(masks: Masks) -> float:
     return 1.0 - overall_sparsity(masks) / 100.0
 
 
+def _global_threshold(scores: Masks, density: float):
+    """(all scores flattened to fp32 on the host, k = int((1 - density) * N),
+    the k-th smallest score, or None where k < 1)."""
+    flat = torch.cat([s.reshape(-1) for s in scores.values()]).float().cpu()
+    k = int((1.0 - density) * flat.shape[0])
+    return flat, k, (torch.kthvalue(flat, k).values if k >= 1 else None)
+
+
 def global_threshold_mask(scores: Masks, masks: Masks, density: float) -> Masks:
     """Global magnitude-style masking: keep weights whose score exceeds the
     k-th smallest score, k = (1 - density) * N over ALL prunable weights.
@@ -102,13 +110,22 @@ def global_threshold_mask(scores: Masks, masks: Masks, density: float) -> Masks:
     returned untouched, as in the reference. ``torch.kthvalue`` compares
     the fp32 values exactly, so the masks are bit-identical to the JAX
     package's ``lax.top_k`` selection on the same scores."""
-    flat = torch.cat([s.reshape(-1) for s in scores.values()]).float()
-    n = flat.shape[0]
-    k = int((1.0 - density) * n)
-    if k < 1:
+    _, _, threshold = _global_threshold(scores, density)
+    if threshold is None:
         return masks
-    threshold = torch.kthvalue(flat.cpu(), k).values
     return {p: s.float() > threshold.to(s.device) for p, s in scores.items()}
+
+
+def global_threshold_counts(scores: Masks, density: float) -> tuple[int, int]:
+    """(k, t) of ``global_threshold_mask(scores, masks, density)``: it
+    masks out the k = int((1 - density) * N) smallest scores and t more,
+    the scores equal to the k-th (``score > threshold`` keeps none of
+    them). So the masks it returns hold exactly k + t zeros; (0, 0) where
+    k < 1 and the masks pass through."""
+    flat, k, threshold = _global_threshold(scores, density)
+    if threshold is None:
+        return 0, 0
+    return k, int((flat <= threshold).sum()) - k
 
 
 def per_layer_threshold_mask(scores: Masks, densities: dict[str, float]) -> Masks:

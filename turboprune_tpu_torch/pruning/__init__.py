@@ -10,6 +10,7 @@ from torch import nn
 
 from ..ops.masking import Masks
 from .criteria import (
+    mag_scores,
     prune_er_balanced,
     prune_er_erk,
     prune_mag,
@@ -80,6 +81,7 @@ __all__ = [
     "erk_densities",
     "generate_cyclical_schedule",
     "generate_densities",
+    "mag_scores",
     "prune_er_balanced",
     "prune_er_erk",
     "prune_mag",

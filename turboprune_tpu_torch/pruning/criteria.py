@@ -59,14 +59,19 @@ def _bernoulli_masks(
     }
 
 
-def prune_mag(params: Mapping[str, torch.Tensor], masks: Masks, density: float) -> Masks:
-    """Global magnitude: score |w * m| (0 at already-pruned weights, so the
-    ladder is monotone), keep the top ``density`` of all prunable weights."""
-    scores = {
+def mag_scores(params: Mapping[str, torch.Tensor], masks: Masks) -> Masks:
+    """|w * m| per masked weight: 0 at already-pruned weights, so the
+    ladder is monotone."""
+    return {
         path: (params[state_key(path)] * m.to(params[state_key(path)].dtype)).abs()
         for path, m in masks.items()
     }
-    return global_threshold_mask(scores, masks, density)
+
+
+def prune_mag(params: Mapping[str, torch.Tensor], masks: Masks, density: float) -> Masks:
+    """Global magnitude: keep the top ``density`` of all prunable weights
+    by ``mag_scores``."""
+    return global_threshold_mask(mag_scores(params, masks), masks, density)
 
 
 def prune_nm(params: Mapping[str, torch.Tensor], masks: Masks, density: float,
